@@ -1,11 +1,11 @@
-"""aspire_tpu: TPU-native accelerated sequential posterior inference.
+"""aspire_tpu: accelerated sequential posterior inference on JAX.
 
 A from-scratch JAX/XLA framework with the capabilities of ``aspire``
 (sequential posterior reuse: normalizing-flow proposal fit to existing
 posterior samples; importance sampling, MCMC, and adaptive-tempered SMC
 with evidence estimation, diagnostics, and checkpoint/resume), designed
-TPU-first: particles live in HBM-resident ``(n, d)`` arrays sharded over a
-device mesh, densities are fused XLA kernels, reductions are psum trees,
+accelerator-first: particles live in device-resident ``(n, d)`` arrays
+sharded over a device mesh, densities are fused XLA kernels, reductions are psum trees,
 and resampling runs on device.
 """
 

@@ -34,7 +34,7 @@ logger = logging.getLogger("aspire_tpu")
 
 
 class Aspire:
-    """Accelerated sequential posterior inference via reuse, TPU-native.
+    """Accelerated sequential posterior inference via reuse, on device.
 
     Parameters
     ----------
@@ -66,9 +66,8 @@ class Aspire:
         Global dtype for samples/flow/transforms.
     prng_impl : str, optional
         JAX PRNG implementation for the SAMPLER key streams (the hot
-        path: mutation proposals, resampling, accept draws). ``"rbg"``
-        is +14% mutation throughput on TPU v5e at the default preset
-        (docs/performance.md); its bitstream is NOT guaranteed stable
+        path: mutation proposals, resampling, accept draws). Its speed
+        against threefry on the H100 is not measured; its bitstream is NOT guaranteed stable
         across XLA versions, so cross-version run reproducibility needs
         the default (threefry). Flow *training* keys stay on the
         default impl (one-time cost, not the hot path).

@@ -13,10 +13,10 @@ Each architecture is a small config object exposing
 - ``inverse(params, z) -> (x, log_det)``   latent -> data (sampling pass)
 
 ``log_det`` is d log|z|/d x summed over features, shape ``(batch,)``.
-Forward passes are single batched matmul chains (MXU-friendly); the MAF
-inverse is a ``lax.fori_loop`` over dims (d is small in this problem
-class). Coupling flows are single-pass in both directions, which is why
-they are the preferred TPU architecture for large sampling workloads.
+Forward passes are single batched matmul chains; the MAF inverse is a
+``lax.fori_loop`` over dims (d is small in this problem class). Coupling
+flows are single-pass in both directions, which is why they are the
+preferred architecture for large sampling workloads.
 """
 
 from __future__ import annotations
@@ -135,17 +135,8 @@ class MAF(Architecture):
 
         Convention: the autoregressive conditioner reads the *data-side*
         variable of each layer, so the density pass is the fast direction
-        (one network evaluation per layer). On TPU the RQS variant
-        dispatches to the fused Pallas kernel (ops/fused_coupling.py);
-        gradients recompute through the XLA path via custom_vjp.
+        (one network evaluation per layer).
         """
-        from ..ops.fused_coupling import (
-            fused_maf_forward,
-            should_fuse_maf,
-        )
-
-        if should_fuse_maf(self, x):
-            return fused_maf_forward(self, params, x)
         return self._forward_xla(params, x)
 
     def inverse(self, params, z):
@@ -260,24 +251,20 @@ class Coupling(Architecture):
         return x, log_det
 
     def forward(self, params, x):
-        """Data -> latent; dispatches to the fused Pallas kernel on TPU.
+        """Data -> latent; the density pass of every mutation step.
 
-        The fused path streams particle tiles through every layer in
-        VMEM (see ops/fused_coupling.py); gradients recompute through
-        the XLA path via custom_vjp, so training and MALA/HMC are exact.
+        On a GPU, large float32 batches run the fused Pallas kernel
+        (ops/fused_coupling.py); its gradient recomputes through the XLA
+        path, so training and gradient-based kernels are exact.
         """
-        from ..ops.fused_coupling import fused_coupling_apply, should_fuse
+        from ..ops.fused_coupling import coupling_density, use_kernel
 
-        if should_fuse(self, x):
-            return fused_coupling_apply(self, "forward", params, x)
+        if use_kernel(self, x):
+            return coupling_density(self, params, x)
         return self._forward_xla(params, x)
 
     def inverse(self, params, z):
-        """Latent -> data; dispatches to the fused Pallas kernel on TPU."""
-        from ..ops.fused_coupling import fused_coupling_apply, should_fuse
-
-        if should_fuse(self, z):
-            return fused_coupling_apply(self, "inverse", params, z)
+        """Latent -> data (the sampling pass)."""
         return self._inverse_xla(params, z)
 
 
@@ -292,16 +279,13 @@ def nsf(dims: int, **kwargs) -> Coupling:
 
 
 def nsf_tpu(dims: int, **kwargs) -> Coupling:
-    """TPU-tuned NSF preset from the round-4 Pareto sweep.
+    """Compact NSF preset: 3 coupling layers x (64, 64) hidden x 8 bins.
 
-    3 coupling layers x (64, 64) hidden x 8 bins: +21% mutation
-    throughput over the reference-era 4-layer default at statistically
-    indistinguishable gate margins under the flow-refit replicate bar
-    (benchmarks/dev/flow_pareto.py + flow_pareto_refit.py; table in
-    benchmarks/RESULTS.md). Every smaller config (2 layers, 4 bins, or
-    32-wide hidden) fails the funnel gate under that bar, and
-    throughput saturates at ~1.5x regardless — so this is the Pareto
-    knee, not a compromise pick. Explicit kwargs still override.
+    Chosen by a sweep of speed against statistical-gate margin
+    (benchmarks/dev/flow_pareto.py and flow_pareto_refit.py): every
+    smaller configuration (2 layers, 4 bins, or 32-wide hidden) failed
+    the funnel gate under the flow-refit replicate bar. Its place on the
+    H100's speed curve is not measured. Explicit kwargs still override.
     """
     kwargs.setdefault("transformer", "rqs")
     kwargs.setdefault("n_layers", 3)

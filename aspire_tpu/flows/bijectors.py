@@ -110,8 +110,8 @@ def rational_quadratic_spline(
     )
     k = jnp.clip(k, 0, num_bins - 1)
 
-    # One-hot contraction instead of take_along_axis: gathers serialize
-    # on TPU (~100x slower); a (..., K) mask reduction is pure VPU work.
+    # One-hot contraction instead of take_along_axis: a (..., K) mask
+    # reduction is elementwise work that XLA fuses, with no gather.
     onehot = (
         k[..., None]
         == jax.lax.broadcasted_iota(k.dtype, k.shape + (num_bins,), k.ndim)

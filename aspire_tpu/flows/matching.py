@@ -7,8 +7,8 @@ linear-path CFM MSE loss; sampling integrates the ODE noise -> data, and
 (dims are small in this problem class, so the d x d Jacobian trace is
 cheap and avoids Hutchinson noise).
 
-TPU notes: fixed-step RK4 under ``lax.scan`` (static step count, no
-adaptive control flow), batched MLP evaluations on the MXU.
+Device notes: fixed-step RK4 under ``lax.scan`` (static step count, no
+adaptive control flow), batched MLP evaluations as matrix products.
 """
 
 from __future__ import annotations

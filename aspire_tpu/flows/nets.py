@@ -4,7 +4,7 @@ Internalizes the conditioner networks the reference delegates to
 ``flowjax``/``zuko`` (SURVEY.md §2.3): a MADE masked autoregressive dense
 network (Germain et al. 2015) and a plain MLP conditioner for coupling
 layers. Parameters are nested dicts of JAX arrays; all forward passes are
-batched matmuls that XLA tiles onto the MXU.
+batched matmuls.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ Adam, cosine LR annealing, grad clipping, early stopping with patience,
 best-state restore) and flowjax's ``fit_to_data``
 (flows/jax/flows.py:80-104) — as one jit-compiled epoch loop.
 
-TPU-first details:
+Device-first details:
 - the whole epoch (all minibatches) runs inside one ``lax.scan`` under
   ``jit`` — no per-batch Python dispatch;
 - data-parallel training over a mesh: batches are sharded over the
@@ -45,8 +45,8 @@ class TrainConfig:
     max_grad_norm: float = 5.0
     weight_decay: float = 0.0
     min_delta: float = 0.0
-    #: epochs executed per device dispatch. Remote/tunneled backends
-    #: pay a round-trip per dispatch AND per host fetch; scanning k
+    #: epochs executed per device dispatch. Every dispatch AND every
+    #: host fetch costs a host round-trip; scanning k
     #: epochs per dispatch cuts that overhead k-fold. The stopping
     #: epoch is exact (the host replays the best/patience recursion
     #: over the fetched per-epoch losses and truncates the history

@@ -26,7 +26,6 @@ import json
 import pickle
 from typing import Any
 
-import h5py
 import jax
 import numpy as np
 
@@ -39,16 +38,26 @@ _PICKLE = "__pickle__"
 _STRING = "__string__"
 
 
-class AspireFile(h5py.File):
-    """h5py.File stamped with the package version attribute.
+def _h5py():
+    """Import h5py at first use: only checkpoints and result files need it."""
+    try:
+        import h5py
+    except ImportError as err:
+        raise ImportError(
+            "HDF5 files (checkpoints, saved results) need the h5py package"
+        ) from err
+    return h5py
+
+
+def AspireFile(*args, **kwargs):
+    """Open an ``h5py.File`` stamped with the package version attribute.
 
     Parity: reference ``AspireFile`` (utils.py:910-928).
     """
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        if self.mode != "r":
-            self.attrs["aspire_tpu_version"] = _pkg_version
+    f = _h5py().File(*args, **kwargs)
+    if f.mode != "r":
+        f.attrs["aspire_tpu_version"] = _pkg_version
+    return f
 
 
 def _encode_value(value: Any) -> Any:
@@ -141,7 +150,7 @@ def load_dict_from_hdf5(h5_file, path: str) -> dict:
 def _load_group(group) -> dict:
     out = {}
     for key, item in group.items():
-        if isinstance(item, h5py.Group):
+        if isinstance(item, _h5py().Group):
             out[key] = _load_group(item)
         else:
             value = item[()]

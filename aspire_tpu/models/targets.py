@@ -10,15 +10,6 @@ Each problem exposes ``log_likelihood(samples)``, ``log_prior(samples)``,
 ``dims``, optional ``prior_bounds``, ``true_log_evidence`` (when
 analytic), and ``draw_initial_samples(rng, n)`` for generating the
 "existing posterior samples" the framework reuses.
-
-Problems additionally implement the **transposed-tile protocol** used
-by the fused mutation kernel (:mod:`aspire_tpu.ops.fused_mutation`):
-``log_likelihood_td(xt)`` / ``log_prior_td(xt)`` take a ``(dims, T)``
-tile (features on sublanes, particles on lanes — the layout the Pallas
-kernels compute in) and return a ``(1, T)`` row. The math is identical
-to the standard methods with the axes flipped; user problems can opt
-into the fused chain by providing the same two methods on the object
-their ``log_likelihood`` is bound to.
 """
 
 from __future__ import annotations
@@ -45,13 +36,6 @@ class Problem:
         raise NotImplementedError
 
     def log_prior(self, samples):
-        raise NotImplementedError
-
-    def log_likelihood_td(self, xt):
-        """(dims, T) tile -> (1, T); see module docstring."""
-        raise NotImplementedError
-
-    def log_prior_td(self, xt):
         raise NotImplementedError
 
     def draw_initial_samples(self, rng, n: int) -> np.ndarray:
@@ -94,21 +78,6 @@ class GaussianProblem(Problem):
         log_p = -self.dims * jnp.log(self.upper - self.lower)
         return jnp.where(inside, log_p, -jnp.inf)
 
-    def log_likelihood_td(self, xt):
-        return jnp.sum(
-            -0.5 * ((xt - self.mu) / self.sigma) ** 2
-            - 0.5 * jnp.log(2 * jnp.pi * self.sigma**2),
-            axis=0,
-            keepdims=True,
-        )
-
-    def log_prior_td(self, xt):
-        inside = jnp.all(
-            (xt >= self.lower) & (xt <= self.upper), axis=0, keepdims=True
-        )
-        log_p = -self.dims * jnp.log(self.upper - self.lower)
-        return jnp.where(inside, log_p, -jnp.inf)
-
     def draw_initial_samples(self, rng, n: int) -> np.ndarray:
         # Slightly biased w.r.t. the true posterior, as in the example.
         return rng.normal(self.mu + 0.5, self.sigma, size=(n, self.dims))
@@ -131,6 +100,25 @@ class GaussianMixtureProblem(Problem):
         self.var1 = 0.5
         self.var2 = 1.0
 
+    @property
+    def true_log_evidence(self):
+        """Under the N(0, I) prior each component integrates to
+        N(mu; 0, (var + 1) I), so Z is their equal-weight mixture."""
+        d = self.dims
+
+        def log_normal_at_zero(mu, var):
+            return -0.5 * np.sum(mu**2) / var - 0.5 * d * np.log(
+                2 * np.pi * var
+            )
+
+        return float(
+            np.logaddexp(
+                log_normal_at_zero(self.mu1, self.var1 + 1.0),
+                log_normal_at_zero(self.mu2, self.var2 + 1.0),
+            )
+            - np.log(2.0)
+        )
+
     def log_likelihood(self, samples):
         x = samples.x
         d = self.dims
@@ -151,29 +139,6 @@ class GaussianMixtureProblem(Problem):
         return -0.5 * jnp.sum(x**2, axis=-1) - 0.5 * self.dims * jnp.log(
             2 * jnp.pi
         )
-
-    def log_likelihood_td(self, xt):
-        d = self.dims
-        mu1 = jnp.asarray(self.mu1, xt.dtype)[:, None]
-        mu2 = jnp.asarray(self.mu2, xt.dtype)[:, None]
-        comp1 = (
-            -0.5 * jnp.sum((xt - mu1) ** 2, axis=0, keepdims=True)
-            / self.var1
-            - 0.5 * d * math.log(2 * math.pi)
-            - 0.5 * d * math.log(self.var1)
-        )
-        comp2 = (
-            -0.5 * jnp.sum((xt - mu2) ** 2, axis=0, keepdims=True)
-            / self.var2
-            - 0.5 * d * math.log(2 * math.pi)
-            - 0.5 * d * math.log(self.var2)
-        )
-        return jnp.logaddexp(comp1, comp2) - math.log(2.0)
-
-    def log_prior_td(self, xt):
-        return -0.5 * jnp.sum(
-            xt**2, axis=0, keepdims=True
-        ) - 0.5 * self.dims * jnp.log(2 * jnp.pi)
 
     def draw_initial_samples(self, rng, n: int) -> np.ndarray:
         offset_1 = rng.uniform(-3, 3, size=(self.dims,))
@@ -212,20 +177,6 @@ class RosenbrockProblem(Problem):
     def log_prior(self, samples):
         x = samples.x
         inside = jnp.all((x >= self.lower) & (x <= self.upper), axis=-1)
-        log_p = -self.dims * jnp.log(self.upper - self.lower)
-        return jnp.where(inside, log_p, -jnp.inf)
-
-    def log_likelihood_td(self, xt):
-        return -jnp.sum(
-            100.0 * (xt[1:] - xt[:-1] ** 2) ** 2 + (1 - xt[:-1]) ** 2,
-            axis=0,
-            keepdims=True,
-        )
-
-    def log_prior_td(self, xt):
-        inside = jnp.all(
-            (xt >= self.lower) & (xt <= self.upper), axis=0, keepdims=True
-        )
         log_p = -self.dims * jnp.log(self.upper - self.lower)
         return jnp.where(inside, log_p, -jnp.inf)
 
@@ -269,26 +220,6 @@ class FunnelProblem(Problem):
             -0.5 * (x / s) ** 2 - 0.5 * jnp.log(2 * jnp.pi * s**2), axis=-1
         )
 
-    def log_likelihood_td(self, xt):
-        v = xt[0:1]
-        rest = xt[1:]
-        log_p_v = -0.5 * (v / self.scale) ** 2 - 0.5 * jnp.log(
-            2 * jnp.pi * self.scale**2
-        )
-        d = self.dims - 1
-        log_p_rest = -0.5 * jnp.sum(
-            rest**2, axis=0, keepdims=True
-        ) * jnp.exp(-v) - 0.5 * d * (jnp.log(2 * jnp.pi) + v)
-        return log_p_v + log_p_rest
-
-    def log_prior_td(self, xt):
-        s = self.prior_scale
-        return jnp.sum(
-            -0.5 * (xt / s) ** 2 - 0.5 * jnp.log(2 * jnp.pi * s**2),
-            axis=0,
-            keepdims=True,
-        )
-
     def draw_initial_samples(self, rng, n: int) -> np.ndarray:
         v = rng.normal(0, self.scale, size=(n, 1))
         rest = rng.normal(size=(n, self.dims - 1)) * np.exp(v / 2)
@@ -330,29 +261,6 @@ class HierarchicalProblem(Problem):
             - jnp.log(scale[..., None])
             - 0.5 * jnp.log(2 * jnp.pi),
             axis=-1,
-        )
-        return log_p_m + log_p_s + log_p_theta
-
-    def log_likelihood_td(self, xt):
-        theta = xt[2:]
-        y = jnp.asarray(self.y_obs, xt.dtype)[:, None]
-        return jnp.sum(
-            -0.5 * (y - theta) ** 2 - 0.5 * math.log(2 * math.pi),
-            axis=0,
-            keepdims=True,
-        )
-
-    def log_prior_td(self, xt):
-        m, s, theta = xt[0:1], xt[1:2], xt[2:]
-        scale = jnp.exp(s)
-        log_p_m = -0.5 * (m / 5.0) ** 2 - 0.5 * jnp.log(2 * jnp.pi * 25.0)
-        log_p_s = -0.5 * (s / 1.0) ** 2 - 0.5 * jnp.log(2 * jnp.pi)
-        log_p_theta = jnp.sum(
-            -0.5 * ((theta - m) / scale) ** 2
-            - jnp.log(scale)
-            - 0.5 * jnp.log(2 * jnp.pi),
-            axis=0,
-            keepdims=True,
         )
         return log_p_m + log_p_s + log_p_theta
 

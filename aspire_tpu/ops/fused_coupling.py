@@ -1,314 +1,204 @@
-"""Pallas-fused coupling-flow passes (TPU hot kernel).
+"""Fused coupling-flow density pass for NVIDIA GPUs (Pallas, Triton route).
 
-The coupling-flow forward pass (the density direction used by every SMC
-mutation step and importance-sampling reweight; reference call stack
-SURVEY.md §3.5, flows/jax/flows.py:156-175) is, per layer, a small MLP
-(three matmuls) followed by elementwise rational-quadratic-spline math.
-Under plain XLA each matmul materializes its ``(n, hidden)`` /
-``(n, dims*n_spline_params)`` intermediate in HBM — at n=128k, d=4 that
-is ~600 MB of HBM traffic per flow evaluation, against ~5 MB of actual
-input/output. This kernel fuses the *entire multi-layer flow*: particle
-tiles stream HBM->VMEM once, all layer weights stay VMEM-resident, the
-MLP matmuls run on the MXU and the spline math on the VPU, and only
-``(z, log_det)`` is written back.
+The coupling flow's density direction (``Coupling._forward_xla``: data
+-> latent, the spline *inverse* in every layer) runs once per particle
+per SMC mutation step. Per layer it is a small MLP (two or three dense
+layers) followed by elementwise rational-quadratic-spline (or affine)
+math. Under XLA every dense layer writes its ``(n, hidden)`` or
+``(n, dims * params)`` activation to device memory and the spline reads
+it back; this kernel keeps one block of particles in registers through
+every layer and writes only ``(z, log_det)``.
 
-Layout: everything inside the kernel is **transposed** — features on
-sublanes, particles on lanes — so the elementwise spline math runs at
-full 128-lane VPU utilization (dims are small; particles are the only
-big axis). Spline parameter groups are padded to 8 rows so every slice
-is sublane-aligned, and per-bin reductions run across sublanes of a
-``(dims, 8, tile)`` view.
+Layout: particles on rows, one program per block of rows. The dims are
+split by parity into an even and an odd half (the coupling masks
+alternate by parity, so every layer transforms one half conditioned on
+the other), each padded to a power of two ``A``. The spline parameters
+of one layer come from three output products of width ``A * num_bins``
+(widths, heights, derivatives), reshaped to ``(rows, A, num_bins)``, so
+the bin search is a masked reduction over the last axis. Products run
+through ``pl.dot``; an output group narrower than Triton's minimum dot
+size (16) is zero-padded to 16 columns and split off afterwards, and a
+conditioner input narrower than 16 is contracted column by column.
 
-Gradients are provided by a ``jax.custom_vjp`` whose backward pass
-recomputes through the reference XLA implementation, so flow training
-(density MLE) and gradient-based mutation kernels (MALA/HMC) are exact.
-
-Dispatch is automatic (see :func:`should_fuse`): TPU backend, 2-D f32
-inputs, ``dims <= MAX_FUSED_DIMS``. ``ASPIRE_TPU_FUSED=0`` disables it.
+The dots follow JAX's default matmul precision, as XLA's do: TF32 on the
+tensor cores by default, full float32 under
+``jax.default_matmul_precision("highest")``. Gradients come from a
+``jax.custom_vjp`` whose backward pass recomputes through
+``Coupling._forward_xla``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-MAX_FUSED_DIMS = 32
-_TILE = int(os.environ.get("ASPIRE_TPU_FUSED_TILE", "2048"))
-# Below this batch size the XLA path is already latency-bound and the
-# fused kernel only adds compile time (one Pallas compile per shape).
-_MIN_FUSED_N = int(os.environ.get("ASPIRE_TPU_FUSED_MIN_N", "4096"))
+from ..flows.bijectors import (
+    DEFAULT_MIN_BIN_HEIGHT,
+    DEFAULT_MIN_BIN_WIDTH,
+    DEFAULT_MIN_DERIVATIVE,
+)
 
+# Triton's smallest dot operand dimension.
+_MIN_DOT = 16
 
-def _conditioner_dot(w, h, dtype):
-    """One conditioner matmul on the MXU.
+# The flows the kernel is chosen for. chip_smoke.py's parity sweep runs
+# the compiled kernel against XLA on an H100 at every value of each axis
+# (every dims x transformer pair, each depth, hidden width and bin
+# count); a flow outside them stays on XLA. On an H100: d=1 (one fixed
+# spline, no conditioning product to fuse) gave the kernel's largest
+# error relative to XLA's (2.85x its maximum log_det error); compile
+# time grows steeply with hidden width (3 x (16, 16) in 4.5 s, 3 x (64,
+# 64) in 14 s, 6 x (128, 128) not within 170 s); the d=8 flow at 6 x
+# (128, 128) won 2.0x end to end but is not yet checked.
+_MIN_DIMS, _MAX_DIMS = 2, 4
+_MAX_LAYERS = 4
+_MAX_HIDDEN_LAYERS = 2
+_HIDDEN_WIDTHS = (16, 32, 64)
+_NUM_BINS = (4, 8, 16)
 
-    Measured (round 2): explicitly casting the operands to bf16 is
-    bit-identical and speed-neutral here — XLA's DEFAULT dot precision
-    on TPU already feeds the MXU bf16 inputs for f32 dots, so the
-    conditioner has been running at the bf16 MXU rate all along. The
-    remaining matmul headroom is SHAPE, not precision: the 64/92-wide
-    layers pad to the 128x128 systolic array.
-    """
-    return jnp.dot(w, h, preferred_element_type=jnp.float32).astype(dtype)
-
-DEFAULT_MIN_BIN_WIDTH = 1e-3
-DEFAULT_MIN_BIN_HEIGHT = 1e-3
-DEFAULT_MIN_DERIVATIVE = 1e-3
-
-_SUBLANE = 8
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-# ---------------------------------------------------------------------------
-# Dispatch predicate
-# ---------------------------------------------------------------------------
+# Rows and warps per program, the fastest of blocks {64, 128, 256} x
+# warps {2, 4, 8} on an H100 at d=4, n=131072
+# (benchmarks/coupling_kernel_trial.py --sweep). The kernel beat XLA's
+# density pass at every population timed (256 to 131072), so any whole
+# number of blocks takes it.
+_BLOCK = 64
+_NUM_WARPS = 4
 
 
-def should_fuse(arch, x) -> bool:
-    """True when the fused TPU kernel applies to this (arch, input)."""
-    if os.environ.get("ASPIRE_TPU_FUSED", "1") != "1":
-        return False
-    if getattr(x, "ndim", None) != 2:
-        return False
-    if x.shape[0] < _MIN_FUSED_N:
-        return False
-    if x.dtype != jnp.float32:
-        return False
-    if arch.dims > MAX_FUSED_DIMS:
-        return False
-    if arch.transformer not in ("affine", "rqs"):
-        return False
-    if arch.transformer == "rqs" and arch.num_bins > 32:
-        return False
-    if _weight_bytes(arch) > 8 * 1024 * 1024:
-        # All layer weights must be VMEM-resident in the kernel; very
-        # wide/deep configs would fail Mosaic allocation where the XLA
-        # path still works.
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover - no backend at all
-        return False
+def _pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def _weight_bytes(arch) -> int:
-    """f32 bytes of the stacked, VMEM-resident conditioner weights."""
-    d = arch.dims
-    a = (d + 1) // 2
-    sizes = [d] + list(arch.n_hidden) + [a * _group_size(arch)]
-    per_layer = sum(
-        sizes[i] * sizes[i + 1] + sizes[i + 1] for i in range(len(sizes) - 1)
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """Static shape of one kernel instance."""
+
+    dims: int
+    n_layers: int
+    n_hidden: tuple
+    transformer: str
+    num_bins: int
+    tail_bound: float
+    block: int
+    num_warps: int
+
+    @property
+    def half(self) -> int:
+        """Padded width ``A`` of each parity half (at least 2)."""
+        return max(_pow2((self.dims + 1) // 2), 2)
+
+    @property
+    def n_out(self) -> int:
+        """Output groups per layer: widths/heights/derivs or shift/scale."""
+        return 3 if self.transformer == "rqs" else 2
+
+
+def kernel_config(arch) -> KernelConfig:
+    """The kernel instance for the flow ``arch``."""
+    return KernelConfig(
+        dims=arch.dims,
+        n_layers=arch.n_layers,
+        n_hidden=tuple(arch.n_hidden),
+        transformer=arch.transformer,
+        num_bins=arch.num_bins,
+        tail_bound=float(arch.tail_bound),
+        block=_BLOCK,
+        num_warps=_NUM_WARPS,
     )
-    return 4 * arch.n_layers * per_layer
 
 
-# ---------------------------------------------------------------------------
-# Parameter preparation (nested layer dicts -> kernel-ready stacks)
-# ---------------------------------------------------------------------------
+def supported(arch) -> bool:
+    """True for the float32 coupling flows inside the kernel's checked
+    domain (the axes above)."""
+    return (
+        arch.dtype == "float32"
+        and _MIN_DIMS <= arch.dims <= _MAX_DIMS
+        and 1 <= arch.n_layers <= _MAX_LAYERS
+        and arch.transformer in ("affine", "rqs")
+        and (arch.transformer == "affine" or arch.num_bins in _NUM_BINS)
+        and 1 <= len(arch.n_hidden) <= _MAX_HIDDEN_LAYERS
+        and all(h in _HIDDEN_WIDTHS for h in arch.n_hidden)
+    )
 
 
-def _group_size(arch) -> int:
-    """Per-dim parameter rows, padded for sublane alignment."""
-    if arch.transformer == "affine":
-        return _SUBLANE
-    # >= 3K so the kernel can take an aligned K-row slice of the
-    # derivative block (rows 2K..3K-1, last row = zero pad).
-    return _round_up(3 * arch.num_bins, _SUBLANE)
+def use_kernel(arch, x) -> bool:
+    """True when the fused kernel runs the density pass of ``arch`` on ``x``.
 
-
-def _active_dims(d: int, layer: int) -> list[int]:
-    """Dims transformed by this layer (complement of `_coupling_masks`)."""
-    return [i for i in range(d) if ((i % 2) + layer) % 2 == 0]
-
-
-def prepare_params(arch, params: dict) -> list[jax.Array]:
-    """Stack per-layer MLP weights over the flow-layer axis, transposed.
-
-    ``params`` is ``{"layers": [mlp_0, ..., mlp_{L-1}]}`` with each
-    ``mlp_l = {"layers": [{"w", "b"}, ...]}`` (identical shapes across
-    flow layers). Hidden weights become ``(L, out, in)`` (transposed for
-    the features-on-sublanes layout). The output layer is reorganized
-    twice over: (a) only the **active** dims of each layer keep their
-    parameter columns (the conditioning half is pass-through, so
-    computing its transformer params would be pure waste — this halves
-    the spline work); (b) per-dim groups of ``P = n_params_per_dim``
-    columns become zero-padded groups of ``G = _group_size`` rows so
-    every in-kernel slice is sublane-aligned. Returns
-    ``[W_0, b_0, W_1, b_1, ...]``.
+    Chosen on a GPU only, for a ``supported`` flow and a 2-D float32
+    input whose rows divide into whole blocks. The kernel has no
+    partitioning rule, so a process with more than one device keeps XLA,
+    which partitions the density pass over a mesh.
     """
-    flow_layers = params["layers"]
-    n_dense = len(flow_layers[0]["layers"])
-    d = arch.dims
-    P = arch._n_params_per_dim
-    G = _group_size(arch)
-    a = (d + 1) // 2
+    if getattr(x, "ndim", None) != 2 or x.dtype != jnp.float32:
+        return False
+    if not supported(arch):
+        return False
+    n = x.shape[0]
+    if n == 0 or n % _BLOCK:
+        return False
+    devices = jax.devices()
+    return len(devices) == 1 and devices[0].platform == "gpu"
+
+
+# ---------------------------------------------------------------------------
+# Parameter preparation (nested layer dicts -> per-layer kernel operands)
+# ---------------------------------------------------------------------------
+
+
+def _parity_take(a, parity: int, width: int, axis: int):
+    """Entries ``parity, parity + 2, ...`` of ``a`` along ``axis``, padded
+    with zeros to ``width``. An exact gather: a one-hot product would
+    round the weights to the default matmul precision (TF32 on a GPU)."""
+    d = a.shape[axis]
+    idx = np.arange(width) * 2 + parity
+    taken = jnp.take(a, np.minimum(idx, d - 1), axis=axis)
+    shape = [1] * a.ndim
+    shape[axis] = width
+    return jnp.where((idx < d).reshape(shape), taken, 0.0)
+
+
+def prepare_params(cfg: KernelConfig, params: dict) -> list[jax.Array]:
+    """Reorganise the coupling MLPs into the kernel's per-layer operands.
+
+    Per layer: the first dense layer keeps only the rows of the
+    conditioning half, ``(A, H)``; hidden layers stay ``(H, H)``; the
+    output layer becomes ``n_out`` groups ``(H, A * P_g)`` holding, for
+    the active half's dim ``a`` and group entry ``k``, column
+    ``a * P_g + k``, zero-padded to at least 16 columns. The derivative
+    group has ``num_bins - 1`` entries per dim, padded with a zero column
+    to ``num_bins``. Returns the flat list ``[w, b, w, b, ...]`` over
+    layers.
+    """
+    d, A, K = cfg.dims, cfg.half, cfg.num_bins
+    P = 3 * K - 1 if cfg.transformer == "rqs" else 2
     out = []
-    for j in range(n_dense):
-        w = jnp.stack([fl["layers"][j]["w"] for fl in flow_layers])
-        b = jnp.stack([fl["layers"][j]["b"] for fl in flow_layers])
-        if j == n_dense - 1:
-            L, H, _ = w.shape
-            w = w.reshape(L, H, d, P)
-            b = b.reshape(L, d, P)
-            w_sel, b_sel = [], []
-            for layer in range(L):
-                act = _active_dims(d, layer)
-                wl = w[layer][:, jnp.asarray(act), :]  # (H, a_l, P)
-                bl = b[layer][jnp.asarray(act), :]
-                if len(act) < a:  # odd d: pad with a dummy group
-                    wl = jnp.pad(wl, ((0, 0), (0, a - len(act)), (0, 0)))
-                    bl = jnp.pad(bl, ((0, a - len(act)), (0, 0)))
-                w_sel.append(wl)
-                b_sel.append(bl)
-            w = jnp.stack(w_sel)  # (L, H, a, P)
-            b = jnp.stack(b_sel)  # (L, a, P)
-            w = jnp.pad(w, ((0, 0), (0, 0), (0, 0), (0, G - P)))
-            w = w.reshape(L, H, a * G)
-            b = jnp.pad(b, ((0, 0), (0, 0), (0, G - P))).reshape(L, a * G)
-        out.append(jnp.swapaxes(w, 1, 2))  # (L, out, in)
-        out.append(b[:, :, None])  # (L, out, 1) — broadcasts over lanes
+    for layer, mlp in enumerate(params["layers"]):
+        dense = mlp["layers"]
+        active = layer % 2  # parity of the transformed half
+        out += [_parity_take(dense[0]["w"], 1 - active, A, 0), dense[0]["b"]]
+        for lyr in dense[1:-1]:
+            out += [lyr["w"], lyr["b"]]
+        w = dense[-1]["w"].reshape(-1, d, P)
+        w = _parity_take(w, active, A, 1)  # (H, A, P)
+        b = _parity_take(dense[-1]["b"].reshape(d, P), active, A, 0)  # (A, P)
+        if cfg.transformer == "rqs":
+            groups = [(0, K), (K, 2 * K), (2 * K, 3 * K - 1)]
+        else:
+            groups = [(0, 1), (1, 2)]
+        for lo, hi in groups:
+            width = K if cfg.transformer == "rqs" else 1
+            wg = jnp.pad(w[:, :, lo:hi], ((0, 0), (0, 0), (0, width - (hi - lo))))
+            bg = jnp.pad(b[:, lo:hi], ((0, 0), (0, width - (hi - lo))))
+            pad = max(_MIN_DOT - A * width, 0)
+            wg = jnp.pad(wg.reshape(w.shape[0], A * width), ((0, 0), (0, pad)))
+            out += [wg, jnp.pad(bg.reshape(A * width), (0, pad))]
     return out
-
-
-# ---------------------------------------------------------------------------
-# Transformer math, transposed layout
-# ---------------------------------------------------------------------------
-
-
-def _cumsum_rows(a, K: int):
-    """Inclusive prefix sum over axis 1 of ``(d, K, T)``.
-
-    Log-step shift-and-add over the sublane (bin) axis: ``ceil(log2 K)``
-    rolls instead of K single-sublane slices — the rolls lower to cheap
-    vector shifts in Mosaic (and have an interpret-mode implementation).
-    """
-    row = jax.lax.broadcasted_iota(jnp.int32, (1, K, 1), 1)
-    c = a
-    s = 1
-    while s < K:
-        shifted = pltpu.roll(c, s, 1)
-        c = c + jnp.where(row >= s, shifted, jnp.zeros_like(c))
-        s *= 2
-    return c
-
-
-def _rqs_rows(v, hg, num_bins: int, tail_bound: float, inverse: bool):
-    """RQS of all dims at once, features-on-sublanes.
-
-    ``v``: (d, T) values; ``hg``: (d, G, T) padded per-dim parameter
-    groups (rows 0..K-1 widths, K..2K-1 heights, 2K..3K-2 derivatives).
-    Returns ``(outputs (d, T), elementwise log_det (d, T))``. Mirrors
-    :func:`aspire_tpu.flows.bijectors.rational_quadratic_spline`.
-    """
-    K = num_bins
-    tb = tail_bound
-
-    w_raw = hg[:, :K, :]
-    h_raw = hg[:, K : 2 * K, :]
-    # Rows 2K..3K-1: K-1 derivative params plus one zero pad row (aligned
-    # K-row slice; the pad row is overwritten with the boundary value).
-    d_raw = hg[:, 2 * K : 3 * K, :]
-
-    # Softmax over the bin (sublane) axis.
-    def bin_softmax(r):
-        e = jnp.exp(r - jnp.max(r, axis=1, keepdims=True))
-        return e / jnp.sum(e, axis=1, keepdims=True)
-
-    widths = bin_softmax(w_raw)
-    widths = DEFAULT_MIN_BIN_WIDTH + (1 - DEFAULT_MIN_BIN_WIDTH * K) * widths
-    heights = bin_softmax(h_raw)
-    heights = (
-        DEFAULT_MIN_BIN_HEIGHT + (1 - DEFAULT_MIN_BIN_HEIGHT * K) * heights
-    )
-    w_scaled = widths * (2 * tb)
-    h_scaled = heights * (2 * tb)
-
-    # Right/left bin edges; left edge of bin 0 is -tail_bound by
-    # construction (up to rounding, which the count-based bin index
-    # below absorbs exactly as the reference's clip does).
-    x_hi = _cumsum_rows(w_scaled, K) - tb  # (d, K, T)
-    x_lo = x_hi - w_scaled
-    y_hi = _cumsum_rows(h_scaled, K) - tb
-    y_lo = y_hi - h_scaled
-
-    # Derivatives at left/right knots of each bin; boundary knots pinned
-    # to 1 to match the identity tails. Row K-1 of d_raw is the zero pad
-    # row; overwrite it with the right-boundary derivative (1), then the
-    # left-knot rows are a single sublane roll (row 0 wraps to 1, the
-    # left-boundary value, for free).
-    row_k = jax.lax.broadcasted_iota(jnp.int32, (1, K, 1), 1)
-    dp = DEFAULT_MIN_DERIVATIVE + jax.nn.softplus(d_raw)  # (d, K, T)
-    d_right_rows = jnp.where(row_k == K - 1, jnp.ones_like(dp), dp)
-    d_left_rows = pltpu.roll(d_right_rows, 1, 1)
-
-    inside = (v > -tb) & (v < tb)
-    safe = jnp.clip(v, -tb, tb)[:, None, :]  # (d, 1, T)
-
-    lo = y_lo if inverse else x_lo
-    k = jnp.sum((safe >= lo).astype(jnp.int32), axis=1, keepdims=True) - 1
-    k = jnp.clip(k, 0, K - 1)  # (d, 1, T)
-    bins = jax.lax.broadcasted_iota(jnp.int32, (1, K, 1), 1)
-    onehot = (k == bins).astype(v.dtype)  # (d, K, T)
-
-    def take(a):  # (d, K, T) -> (d, T)
-        return jnp.sum(a * onehot, axis=1)
-
-    x_k = take(x_lo)
-    y_k = take(y_lo)
-    w = take(w_scaled)
-    h = take(h_scaled)
-    d_k = take(d_left_rows)
-    d_k1 = take(d_right_rows)
-    s = h / w
-    sv = safe[:, 0, :]
-
-    if not inverse:
-        xi = jnp.clip((sv - x_k) / w, 0.0, 1.0)
-        xi_1m = 1 - xi
-        num = h * (s * xi**2 + d_k * xi * xi_1m)
-        den = s + (d_k1 + d_k - 2 * s) * xi * xi_1m
-        outputs = y_k + num / den
-        log_det = (
-            2 * jnp.log(s)
-            + jnp.log(d_k1 * xi**2 + 2 * s * xi * xi_1m + d_k * xi_1m**2)
-            - 2 * jnp.log(den)
-        )
-    else:
-        y_rel = sv - y_k
-        a = h * (s - d_k) + y_rel * (d_k1 + d_k - 2 * s)
-        b = h * d_k - y_rel * (d_k1 + d_k - 2 * s)
-        c = -s * y_rel
-        disc = jnp.maximum(b**2 - 4 * a * c, 0.0)
-        xi = jnp.clip((2 * c) / (-b - jnp.sqrt(disc)), 0.0, 1.0)
-        xi_1m = 1 - xi
-        outputs = xi * w + x_k
-        den = s + (d_k1 + d_k - 2 * s) * xi * xi_1m
-        log_det = -(
-            2 * jnp.log(s)
-            + jnp.log(d_k1 * xi**2 + 2 * s * xi * xi_1m + d_k * xi_1m**2)
-            - 2 * jnp.log(den)
-        )
-
-    outputs = jnp.where(inside, outputs, v)
-    log_det = jnp.where(inside, log_det, 0.0)
-    return outputs, log_det
-
-
-def _affine_rows(v, hg, inverse: bool, bound: float = 3.0):
-    """Affine transformer, features-on-sublanes; ``hg``: (d, G, T)."""
-    shift = hg[:, 0, :]
-    log_scale = bound * jnp.tanh(hg[:, 1, :] / bound)
-    if inverse:
-        return (v - shift) * jnp.exp(-log_scale), -log_scale
-    return v * jnp.exp(log_scale) + shift, log_scale
 
 
 # ---------------------------------------------------------------------------
@@ -316,329 +206,168 @@ def _affine_rows(v, hg, inverse: bool, bound: float = 3.0):
 # ---------------------------------------------------------------------------
 
 
-def _layer_matmuls(arch, w_refs, n_dense, layer, x, dtype):
-    """The conditioner MLP of one layer on the MXU (masked input)."""
-    row = jax.lax.broadcasted_iota(jnp.int32, (arch.dims, 1), 0)
-    # mask==1 marks the conditioning half (passes through unchanged
-    # and feeds the conditioner) — parity matches `_coupling_masks`.
-    cond = ((row % 2) + layer) % 2 == 1  # (d, 1)
-    h = jnp.where(cond, x, jnp.zeros_like(x))
-    for j in range(n_dense):
-        w = w_refs[2 * j][layer]  # (out, in)
-        b = w_refs[2 * j + 1][layer]  # (out, 1)
-        h = _conditioner_dot(w, h, dtype) + b
-        if j < n_dense - 1:
-            h = jax.nn.relu(h)
-    return h
+def _conditioner_input(h, w_ref):
+    """``h @ w`` for the conditioning half ``h`` ``(B, A)``.
 
-
-def _layer_transform(arch, layer, x, h, density_pass: bool):
-    """The elementwise transformer of one layer on the VPU."""
-    d = arch.dims
-    G = _group_size(arch)
-    a = (d + 1) // 2
-    act = _active_dims(d, layer)
-    hg = h.reshape(a, G, h.shape[-1])  # (a, G, T): active dims only
-
-    # Gather the active rows of x (static single-row slices).
-    v_rows = [x[i : i + 1, :] for i in act]
-    if len(act) < a:
-        v_rows.append(jnp.zeros_like(x[:1, :]))
-    v = jnp.concatenate(v_rows, axis=0) if a > 1 else v_rows[0]
-
-    if arch.transformer == "affine":
-        y, eld = _affine_rows(v, hg, inverse=density_pass)
-    else:
-        y, eld = _rqs_rows(
-            v, hg, arch.num_bins, arch.tail_bound, inverse=density_pass
-        )
-    # Scatter transformed rows back into dim order.
-    pos = {i: idx for idx, i in enumerate(act)}
-    rows = [
-        y[pos[i] : pos[i] + 1, :] if i in pos else x[i : i + 1, :]
-        for i in range(d)
-    ]
-    x = jnp.concatenate(rows, axis=0) if d > 1 else rows[0]
-    return x, jnp.sum(eld[: len(act)], axis=0, keepdims=True)
-
-
-def _coupling_kernel(arch, mode: str, n_dense: int, xt_ref, *refs):
-    """One particle tile through every coupling layer, VMEM-resident.
-
-    ``mode="forward"``: data -> latent (density pass; transformer
-    inverse), layers in order. ``mode="inverse"``: latent -> data
-    (sampling pass; transformer forward), layers reversed. All arrays
-    are transposed: ``xt_ref`` is (d, T).
-
-    The tile is processed as two lane-halves, software-pipelined one
-    layer apart: half B's conditioner matmuls (MXU) are issued before
-    half A's spline/affine math (VPU), giving Mosaic independent work
-    for both units at every point in the schedule. Measured +9% at
-    n=131k (benchmarks/dev/interleave_ab.py) — without this the phase
-    times are exactly additive (the units never overlap). Bit-exact
-    with the single-stream order.
+    Below the dot minimum, one outer product per input column, each
+    column taken by a masked sum over the last axis.
     """
-    w_refs = refs[: 2 * n_dense]
-    zt_ref, ld_ref = refs[2 * n_dense], refs[2 * n_dense + 1]
-
-    density_pass = mode == "forward"
-    T = xt_ref.shape[-1]
-    H = T // 2
-
-    x_a = xt_ref[:, :H]
-    x_b = xt_ref[:, H:]
-    dtype = x_a.dtype
-    ld_a = jnp.zeros((1, H), dtype=dtype)
-    ld_b = jnp.zeros((1, H), dtype=dtype)
-
-    order = list(range(arch.n_layers))
-    if not density_pass:
-        order = order[::-1]
-
-    h_a = _layer_matmuls(arch, w_refs, n_dense, order[0], x_a, dtype)
-    for idx, layer in enumerate(order):
-        h_b = _layer_matmuls(arch, w_refs, n_dense, layer, x_b, dtype)
-        x_a, e_a = _layer_transform(arch, layer, x_a, h_a, density_pass)
-        ld_a = ld_a + e_a
-        if idx + 1 < len(order):
-            h_a = _layer_matmuls(
-                arch, w_refs, n_dense, order[idx + 1], x_a, dtype
-            )
-        x_b, e_b = _layer_transform(arch, layer, x_b, h_b, density_pass)
-        ld_b = ld_b + e_b
-
-    zt_ref[:, :H] = x_a
-    zt_ref[:, H:] = x_b
-    ld_ref[:, :H] = ld_a
-    ld_ref[:, H:] = ld_b
-
-
-def _pallas_apply(arch, mode: str, prepared, x, interpret=None):
-    """Invoke the fused kernel over particle tiles.
-
-    ``x`` is (n, d) in the standard layout; transposition to the
-    kernel's features-on-sublanes layout happens here (a cheap XLA
-    transpose of the small in/out arrays only).
-    """
-    n, d = x.shape
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    n_dense = len(prepared) // 2
-    # VMEM scales with (active dims) x (param-group rows) x tile: shrink
-    # the tile as dims grow so the spline live set stays under ~half of
-    # VMEM (d=4 keeps the full default tile; d=32 drops to 512 lanes).
-    # The kernel splits each tile into two lane-halves (MXU/VPU
-    # pipelining), so tiles are 2 x _TILE and multiples of 256.
-    rows = max(((d + 1) // 2) * _group_size(arch), 1)
-    tile_budget = max(256, (98_304 // rows) // 128 * 128)
-    tile = min(2 * _TILE, tile_budget, _round_up(n, 256))
-    tile = max(256, tile // 256 * 256)
-    grid = (pl.cdiv(n, tile),)
-
-    kernel = functools.partial(_coupling_kernel, arch, mode, n_dense)
-    weight_specs = [
-        pl.BlockSpec(
-            s.shape, lambda i, nd=s.ndim: (0,) * nd, memory_space=pltpu.VMEM
-        )
-        for s in prepared
-    ]
-    zt, ld = pl.pallas_call(
-        kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((d, n), x.dtype),
-            jax.ShapeDtypeStruct((1, n), x.dtype),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (d, tile), lambda i: (0, i), memory_space=pltpu.VMEM
-            )
-        ]
-        + weight_specs,
-        out_specs=(
-            pl.BlockSpec(
-                (d, tile), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, tile), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
-        ),
-        interpret=interpret,
-    )(x.T, *prepared)
-    return zt.T, ld[0]
-
-
-# ---------------------------------------------------------------------------
-# MAF density pass (forward only; the autoregressive inverse is a
-# sequential per-dim solve and stays on the XLA path)
-# ---------------------------------------------------------------------------
-
-
-def should_fuse_maf(arch, x) -> bool:
-    """Dispatch predicate for the fused MAF density pass."""
-    if arch.transformer != "rqs":
-        # Affine MAF is MXU-pass-bound; fusion measured ~neutral.
-        return False
-    # MAF's output layer carries parameter groups for ALL dims (the
-    # shared should_fuse bound assumes the coupling half).
-    if 2 * _weight_bytes(arch) > 8 * 1024 * 1024:
-        return False
-    return should_fuse(arch, x)
-
-
-def prepare_maf_params(arch, params: dict) -> list[jax.Array]:
-    """Stack MADE weights (mask-premultiplied, transposed) per depth.
-
-    Same output-layer reorganization as :func:`prepare_params` but over
-    ALL dims (MAF transforms every dim each layer).
-    """
-    from ..flows.nets import made_masks
-
-    flow_layers = params["layers"]
-    n_dense = len(flow_layers[0]["layers"])
-    d = arch.dims
-    P = arch._n_params_per_dim
-    G = _group_size(arch)
-    masks, _ = made_masks(d, list(arch.n_hidden), P)
-    out = []
-    for j in range(n_dense):
-        mask = jnp.asarray(masks[j])
-        w = jnp.stack(
-            [fl["layers"][j]["w"] * mask for fl in flow_layers]
-        )
-        b = jnp.stack([fl["layers"][j]["b"] for fl in flow_layers])
-        if j == n_dense - 1:
-            L, H, _ = w.shape
-            w = w.reshape(L, H, d, P)
-            b = b.reshape(L, d, P)
-            w = jnp.pad(w, ((0, 0), (0, 0), (0, 0), (0, G - P)))
-            w = w.reshape(L, H, d * G)
-            b = jnp.pad(b, ((0, 0), (0, 0), (0, G - P))).reshape(L, d * G)
-        out.append(jnp.swapaxes(w, 1, 2))
-        out.append(b[:, :, None])
+    A = h.shape[1]
+    if A >= _MIN_DOT:
+        return pl.dot(h, w_ref[...])
+    lane = jnp.arange(A)[None, :]
+    out = None
+    for j in range(A):
+        col = jnp.sum(jnp.where(lane == j, h, 0.0), axis=1)
+        term = col[:, None] * w_ref[j][None, :]
+        out = term if out is None else out + term
     return out
 
 
-def _made_matmuls(w_refs, n_dense, layer, x, dtype):
-    """One MADE evaluation (mask-premultiplied weights) on the MXU."""
-    h = x
-    for j in range(n_dense):
-        w = w_refs[2 * j][layer]
-        b = w_refs[2 * j + 1][layer]
-        h = _conditioner_dot(w, h, dtype) + b
-        if j < n_dense - 1:
-            h = jax.nn.relu(h)
-    return h
+def _output_group(h, w_ref, b_ref, width: int):
+    """One output group, ``(B, width)``, from a product padded to 16."""
+    out = pl.dot(h, w_ref[...]) + b_ref[...]
+    padded = w_ref.shape[1]
+    if padded == width:
+        return out
+    return jnp.split(out, padded // width, axis=1)[0]
 
 
-def _maf_layer_transform(arch, x, h):
-    """RQS of all dims + row reversal (MAF.forward's z[:, ::-1])."""
-    d = arch.dims
-    G = _group_size(arch)
-    hg = h.reshape(d, G, h.shape[-1])
-    y, eld = _rqs_rows(
-        x, hg, arch.num_bins, arch.tail_bound, inverse=True
+def _softmax(r):
+    e = jnp.exp(r - jnp.max(r, axis=2, keepdims=True))
+    return e / jnp.sum(e, axis=2, keepdims=True)
+
+
+def _rqs_inverse(cfg: KernelConfig, v, raw):
+    """Inverse RQS of ``v`` ``(B, A)`` given raw groups ``(B, A * K)``.
+
+    Mirrors ``rational_quadratic_spline(..., inverse=True)``: the left
+    knot of bin ``k`` is the cumulative sum through bin ``k - 1`` (or
+    ``-tail_bound``), and the boundary derivatives are 1.
+    """
+    K, tb = cfg.num_bins, cfg.tail_bound
+    B, A = v.shape
+    w_raw, h_raw, d_raw = (r.reshape(B, A, K) for r in raw)
+    widths = DEFAULT_MIN_BIN_WIDTH + (
+        1 - DEFAULT_MIN_BIN_WIDTH * K
+    ) * _softmax(w_raw)
+    heights = DEFAULT_MIN_BIN_HEIGHT + (
+        1 - DEFAULT_MIN_BIN_HEIGHT * K
+    ) * _softmax(h_raw)
+    x_hi = jnp.cumsum(widths, axis=2) * (2 * tb) - tb
+    y_hi = jnp.cumsum(heights, axis=2) * (2 * tb) - tb
+    derivs = DEFAULT_MIN_DERIVATIVE + jax.nn.softplus(d_raw)
+
+    inside = (v > -tb) & (v < tb)
+    safe = jnp.clip(v, -tb, tb)
+    bins = jax.lax.broadcasted_iota(jnp.int32, (1, 1, K), 2)
+    # Bin k holds y_hi[k-1] <= safe < y_hi[k]; the last knot is excluded,
+    # as in the reference's clip to K - 1.
+    below = (bins < K - 1) & (safe[:, :, None] >= y_hi)
+    k = jnp.sum(below.astype(jnp.int32), axis=2)
+    this = bins == k[:, :, None]
+    prev = bins == (k - 1)[:, :, None]
+
+    def take(a, m):
+        return jnp.sum(jnp.where(m, a, 0.0), axis=2)
+
+    first, last = k == 0, k == K - 1
+    x_k = jnp.where(first, -tb, take(x_hi, prev))
+    y_k = jnp.where(first, -tb, take(y_hi, prev))
+    w = take(x_hi, this) - x_k
+    h = take(y_hi, this) - y_k
+    d_k = jnp.where(first, 1.0, take(derivs, prev))
+    d_k1 = jnp.where(last, 1.0, take(derivs, this))
+    s = h / w
+
+    y_rel = safe - y_k
+    a = h * (s - d_k) + y_rel * (d_k1 + d_k - 2 * s)
+    b = h * d_k - y_rel * (d_k1 + d_k - 2 * s)
+    c = -s * y_rel
+    disc = jnp.maximum(b**2 - 4 * a * c, 0.0)
+    xi = jnp.clip((2 * c) / (-b - jnp.sqrt(disc)), 0.0, 1.0)
+    xi_1m = 1 - xi
+    out = xi * w + x_k
+    den = s + (d_k1 + d_k - 2 * s) * xi * xi_1m
+    log_det = -(
+        2 * jnp.log(s)
+        + jnp.log(d_k1 * xi**2 + 2 * s * xi * xi_1m + d_k * xi_1m**2)
+        - 2 * jnp.log(den)
     )
-    rows = [y[i : i + 1, :] for i in reversed(range(d))]
-    x = jnp.concatenate(rows, axis=0) if d > 1 else rows[0]
-    return x, jnp.sum(eld, axis=0, keepdims=True)
+    return jnp.where(inside, out, v), jnp.where(inside, log_det, 0.0)
 
 
-def _maf_kernel(arch, n_dense: int, xt_ref, *refs):
-    """MAF density pass, features-on-sublanes: per layer one MADE
-    evaluation + RQS of all dims + row reversal. Same two-lane-half
-    MXU/VPU software pipeline as :func:`_coupling_kernel`."""
-    w_refs = refs[: 2 * n_dense]
-    zt_ref, ld_ref = refs[2 * n_dense], refs[2 * n_dense + 1]
-
-    T = xt_ref.shape[-1]
-    H = T // 2
-    x_a = xt_ref[:, :H]
-    x_b = xt_ref[:, H:]
-    dtype = x_a.dtype
-    ld_a = jnp.zeros((1, H), dtype=dtype)
-    ld_b = jnp.zeros((1, H), dtype=dtype)
-
-    h_a = _made_matmuls(w_refs, n_dense, 0, x_a, dtype)
-    for layer in range(arch.n_layers):
-        h_b = _made_matmuls(w_refs, n_dense, layer, x_b, dtype)
-        x_a, e_a = _maf_layer_transform(arch, x_a, h_a)
-        ld_a = ld_a + e_a
-        if layer + 1 < arch.n_layers:
-            h_a = _made_matmuls(w_refs, n_dense, layer + 1, x_a, dtype)
-        x_b, e_b = _maf_layer_transform(arch, x_b, h_b)
-        ld_b = ld_b + e_b
-
-    zt_ref[:, :H] = x_a
-    zt_ref[:, H:] = x_b
-    ld_ref[:, :H] = ld_a
-    ld_ref[:, H:] = ld_b
+def _affine_inverse(v, raw, bound: float = 3.0):
+    shift, scale_raw = raw
+    log_scale = bound * jnp.tanh(scale_raw / bound)
+    return (v - shift) * jnp.exp(-log_scale), -log_scale
 
 
-def _pallas_maf_forward(arch, prepared, x, interpret=None):
-    n, d = x.shape
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    n_dense = len(prepared) // 2
-    # Two-lane-half pipeline: tiles are 2 x _TILE, multiples of 256
-    # (see _pallas_apply).
-    rows = max(d * _group_size(arch), 1)
-    tile_budget = max(256, (98_304 // rows) // 128 * 128)
-    tile = min(2 * _TILE, tile_budget, _round_up(n, 256))
-    tile = max(256, tile // 256 * 256)
-    grid = (pl.cdiv(n, tile),)
-
-    kernel = functools.partial(_maf_kernel, arch, n_dense)
-    weight_specs = [
-        pl.BlockSpec(
-            s.shape, lambda i, nd=s.ndim: (0,) * nd, memory_space=pltpu.VMEM
-        )
-        for s in prepared
+def _coupling_kernel(cfg: KernelConfig, x_ref, *refs):
+    """One block of particles through every coupling layer."""
+    z_ref, ld_ref = refs[-2], refs[-1]
+    w_refs = refs[:-2]
+    A = cfg.half
+    n_dense = len(cfg.n_hidden) + 1
+    per_layer = 2 * (n_dense - 1 + cfg.n_out)
+    lane = jnp.arange(A)
+    n_dims = ((cfg.dims + 1) // 2, cfg.dims // 2)  # even, odd halves
+    ok = [(lane < m)[None, :] for m in n_dims]
+    in_row = (jnp.arange(2 * A) < cfg.dims)[None, :]
+    # Split the row block into its even and odd dims by a reshape and a
+    # split of the trailing pair (Triton slices registers no other way).
+    x = plgpu.load(x_ref, mask=in_row, other=0.0)
+    halves = [
+        h.reshape(cfg.block, A)
+        for h in jnp.split(x.reshape(cfg.block, A, 2), 2, axis=2)
     ]
-    zt, ld = pl.pallas_call(
-        kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((d, n), x.dtype),
-            jax.ShapeDtypeStruct((1, n), x.dtype),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (d, tile), lambda i: (0, i), memory_space=pltpu.VMEM
-            )
+    log_det = jnp.zeros((cfg.block,), jnp.float32)
+    for layer in range(cfg.n_layers):
+        ops = w_refs[layer * per_layer:(layer + 1) * per_layer]
+        p = layer % 2
+        h = jax.nn.relu(_conditioner_input(halves[1 - p], ops[0]) + ops[1][...])
+        for j in range(1, n_dense - 1):
+            h = jax.nn.relu(pl.dot(h, ops[2 * j][...]) + ops[2 * j + 1][...])
+        width = A * (cfg.num_bins if cfg.transformer == "rqs" else 1)
+        raw = [
+            _output_group(h, ops[2 * j], ops[2 * j + 1], width)
+            for j in range(n_dense - 1, n_dense - 1 + cfg.n_out)
         ]
-        + weight_specs,
-        out_specs=(
-            pl.BlockSpec(
-                (d, tile), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, tile), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
+        if cfg.transformer == "rqs":
+            y, eld = _rqs_inverse(cfg, halves[p], raw)
+        else:
+            y, eld = _affine_inverse(halves[p], raw)
+        halves[p] = jnp.where(ok[p], y, 0.0)
+        log_det = log_det + jnp.sum(jnp.where(ok[p], eld, 0.0), axis=1)
+    z = jnp.concatenate([h.reshape(cfg.block, A, 1) for h in halves], axis=2)
+    plgpu.store(z_ref, z.reshape(cfg.block, 2 * A), mask=in_row)
+    ld_ref[...] = log_det
+
+
+def coupling_density_pallas(cfg: KernelConfig, prepared, x, interpret=False):
+    """Run the kernel on ``x`` ``(n, d)``; ``n`` a multiple of the block."""
+    n, d = x.shape
+    if n % cfg.block:
+        raise ValueError(f"n={n} is not a multiple of block={cfg.block}")
+    width = 2 * cfg.half
+    row_block = pl.BlockSpec((cfg.block, width), lambda i: (i, 0))
+    weight_specs = [
+        pl.BlockSpec(w.shape, lambda i, nd=w.ndim: (0,) * nd)
+        for w in prepared
+    ]
+    return pl.pallas_call(
+        functools.partial(_coupling_kernel, cfg),
+        out_shape=(
+            jax.ShapeDtypeStruct((n, d), x.dtype),
+            jax.ShapeDtypeStruct((n,), x.dtype),
         ),
+        grid=(n // cfg.block,),
+        in_specs=[row_block] + weight_specs,
+        out_specs=(row_block, pl.BlockSpec((cfg.block,), lambda i: (i,))),
+        compiler_params=plgpu.CompilerParams(num_warps=cfg.num_warps),
         interpret=interpret,
-    )(x.T, *prepared)
-    return zt.T, ld[0]
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
-def fused_maf_forward(arch, params, x):
-    """Fused MAF density pass; semantics of ``MAF._forward_xla``."""
-    prepared = prepare_maf_params(arch, params)
-    return _pallas_maf_forward(arch, prepared, x)
-
-
-def _fused_maf_fwd(arch, params, x):
-    return fused_maf_forward(arch, params, x), (params, x)
-
-
-def _fused_maf_bwd(arch, res, cotangents):
-    params, x = res
-    _, vjp = jax.vjp(arch._forward_xla, params, x)
-    return vjp(cotangents)
-
-
-fused_maf_forward.defvjp(_fused_maf_fwd, _fused_maf_bwd)
+        name="coupling_density",
+    )(x, *prepared)
 
 
 # ---------------------------------------------------------------------------
@@ -646,26 +375,21 @@ fused_maf_forward.defvjp(_fused_maf_fwd, _fused_maf_bwd)
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def fused_coupling_apply(arch, mode: str, params, x):
-    """Fused coupling pass; ``mode`` in {"forward", "inverse"}.
-
-    Semantics identical to ``Coupling._forward_xla`` /
-    ``Coupling._inverse_xla`` (aspire_tpu/flows/architectures.py).
-    """
-    prepared = prepare_params(arch, params)
-    return _pallas_apply(arch, mode, prepared, x)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
+def coupling_density(arch, params, x):
+    """Fused ``Coupling._forward_xla``: returns ``(z, log_det)``."""
+    cfg = kernel_config(arch)
+    return coupling_density_pallas(cfg, prepare_params(cfg, params), x)
 
 
-def _fused_fwd(arch, mode, params, x):
-    return fused_coupling_apply(arch, mode, params, x), (params, x)
+def _density_fwd(arch, params, x):
+    return coupling_density(arch, params, x), (params, x)
 
 
-def _fused_bwd(arch, mode, res, cotangents):
+def _density_bwd(arch, res, cotangents):
     params, x = res
-    ref_fn = arch._forward_xla if mode == "forward" else arch._inverse_xla
-    _, vjp = jax.vjp(ref_fn, params, x)
+    _, vjp = jax.vjp(arch._forward_xla, params, x)
     return vjp(cotangents)
 
 
-fused_coupling_apply.defvjp(_fused_fwd, _fused_bwd)
+coupling_density.defvjp(_density_fwd, _density_bwd)

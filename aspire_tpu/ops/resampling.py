@@ -5,7 +5,7 @@ The reference resamples by dropping to host numpy and calling
 per SMC iteration. Here every scheme runs on device with static shapes:
 
 - ``systematic`` (default; lower-variance upgrade over the reference's
-  multinomial, kept as the TPU-native default per BASELINE.json),
+  multinomial, kept as the default per BASELINE.json),
 - ``multinomial`` (parity with the reference for comparison runs),
 - ``stratified`` and ``residual`` for completeness.
 

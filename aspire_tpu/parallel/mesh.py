@@ -1,10 +1,10 @@
 """Device mesh and sharding for the particle axis.
 
 The reference's only parallelism is a host process pool mapped over
-likelihood evaluations (utils.py:117-193). The TPU-native replacement
-(SURVEY.md §2.2, §5): particles live in ``(n, d)`` HBM arrays sharded
-``P('data')`` over a device mesh spanning ICI (intra-slice) and DCN
-(inter-slice); every sampler computation is jitted, so XLA/GSPMD inserts
+likelihood evaluations (utils.py:117-193). The replacement (SURVEY.md
+§2.2, §5): particles live in device-resident ``(n, d)`` arrays sharded
+``P('data')`` over a flat 1-D device mesh (the cards of one host are
+joined all to all, so no topology enters the mesh); every sampler computation is jitted, so XLA/GSPMD inserts
 the collectives — psum trees for ESS/logZ/moment reductions, all-gathers
 for the O(n) weight vectors at resampling, and the resampling gather's
 data movement. No pool, no pickling: the likelihood contract is a

@@ -2,9 +2,10 @@
 
 The reference has no profiling infrastructure (SURVEY.md §5: the only
 instrumentation is the likelihood-eval counter and SMCHistory). This
-module adds the TPU-side observability layer: phase wall-clock timers
-feeding particles/s and ESS/s metrics, and a context manager around the
-JAX profiler for device traces.
+module adds the device-side observability layer: phase wall-clock timers
+feeding particles/s and ESS/s metrics, a context manager around the
+JAX profiler for device traces, and the card description every
+measurement is reported with.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import subprocess
 import time
 from collections import defaultdict
 
@@ -98,3 +100,26 @@ def device_trace(log_dir: str):
     finally:
         jax.profiler.stop_trace()
         logger.info("Device trace written to %s", log_dir)
+
+
+def card_line() -> str:
+    """``name, power.limit`` of each GPU, as nvidia-smi reports them.
+
+    A card may run below its maximum power limit, and then slower under
+    load, so every measurement is reported beside this line.
+    """
+    try:
+        out = subprocess.run(
+            [
+                "nvidia-smi",
+                "--query-gpu=name,power.limit",
+                "--format=csv,noheader",
+            ],
+            capture_output=True,
+            text=True,
+            timeout=60,
+            check=True,
+        )
+    except (OSError, subprocess.SubprocessError) as err:
+        return f"nvidia-smi failed: {err}"
+    return out.stdout.strip()

@@ -7,7 +7,7 @@ the flow proposal, the preconditioning transform, a likelihood-evaluation
 counter, config capture, and the checkpoint protocol (state capture ->
 pickled bytes at ``/checkpoint/state`` in an HDF5 file -> restore).
 
-TPU-native addition: the sampler detects whether the user callables are
+Addition over the reference: the sampler detects whether the user callables are
 jit-traceable. If so, density evaluations fuse into the on-device sampler
 kernels; otherwise they are evaluated on host exactly like the reference
 (still vectorized over the whole particle array per call).
@@ -107,10 +107,9 @@ class Sampler:
         Seed / PRNG key for the sampler's random stream.
     prng_impl : str, optional
         JAX PRNG implementation for the sampler's key stream (e.g.
-        ``"rbg"``; default: JAX's default, threefry2x32). ``"rbg"`` is
-        measurably faster on TPU (+14% mutation throughput at the
-        ``nsf-tpu`` preset, BENCH_r04/r05) because its bit generation
-        is hardware-friendly, at a documented cost: the rbg BITSTREAM
+        ``"rbg"``; default: JAX's default, threefry2x32). ``"rbg"`` uses
+        XLA's RngBitGenerator (its speed on the H100 is not measured),
+        at a documented cost: the rbg BITSTREAM
         is not guaranteed stable across XLA/jaxlib versions, so runs
         are reproducible only within one software version (threefry is
         stable across versions). Checkpoints record the impl and

@@ -1,7 +1,7 @@
 """Importance sampler (parity: reference samplers/importance.py:6-23).
 
 Draw n samples from the flow proposal, evaluate log-prior/likelihood, and
-compute importance weights, evidence, and ESS. On TPU the flow sampling +
+compute importance weights, evidence, and ESS. On device the flow sampling +
 density evaluation is one fused XLA computation over the whole batch.
 """
 

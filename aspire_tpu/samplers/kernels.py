@@ -143,12 +143,11 @@ def monotone_beta_bisect(ok, beta_prev, tol, dtype):
 def gamma_fixed_shape(key, alpha: float, n: int, dtype) -> jax.Array:
     """Sample Gamma(alpha, 1) for a *static* shape parameter.
 
-    ``jax.random.gamma`` runs a rejection loop (~0.5 ms for 128k samples
-    on v5e — 25% of a whole tpCN step). When ``2*alpha`` is an integer,
-    Gamma(alpha, 1) = chi2_{2 alpha}/2 has the exact closed construction
-    ``sum of floor(alpha) exponentials (+ half a squared normal when
-    2 alpha is odd)``, which is pure vectorized RNG+VPU work (~10x
-    faster). Falls back to ``jax.random.gamma`` otherwise.
+    ``jax.random.gamma`` runs a data-dependent rejection loop. When
+    ``2*alpha`` is an integer, Gamma(alpha, 1) = chi2_{2 alpha}/2 has
+    the exact closed construction ``sum of floor(alpha) exponentials
+    (+ half a squared normal when 2 alpha is odd)``, which is pure
+    vectorized RNG and elementwise work. Falls back to ``jax.random.gamma`` otherwise.
     """
     two_alpha = 2.0 * alpha
     k = int(round(two_alpha))
@@ -414,7 +413,7 @@ def hmc_step(
     With ``jitter_trajectory=True`` the trajectory length is randomized
     uniformly in [1, n_leapfrog] per step (shared across particles),
     the standard static-shape surrogate for NUTS-style path exploration
-    on TPU (no data-dependent recursion; SURVEY.md §7 hard-parts note).
+    on an accelerator (no data-dependent recursion; SURVEY.md §7).
     """
     key, mom_key, len_key, accept_key = jax.random.split(state.key, 4)
     n, d = state.x.shape
@@ -465,9 +464,9 @@ def hmc_step(
 # NUTS (iterative, bounded depth, static shapes)
 # ---------------------------------------------------------------------------
 #
-# A real No-U-Turn sampler lowered for TPU: per-particle tree doubling
+# A real No-U-Turn sampler with static shapes: per-particle tree doubling
 # under ``vmap`` (so every global step still evaluates the whole particle
-# batch on the MXU, with finished particles masked), multinomial
+# batch at once, with finished particles masked), multinomial
 # progressive sampling over the trajectory, and the memory-efficient
 # within-subtree U-turn checks done iteratively with a checkpoint stack
 # of ``max_depth`` states instead of recursion. Matches the capability

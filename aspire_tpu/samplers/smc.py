@@ -1,6 +1,6 @@
 """Adaptive-tempered Sequential Monte Carlo.
 
-TPU-native re-design of the reference SMC stack (``samplers/smc/base.py``,
+Device-resident re-design of the reference SMC stack (``samplers/smc/base.py``,
 ``smc/minipcn.py``, ``smc/emcee.py``, ``smc/blackjax.py``):
 
 - the temperature ladder is orchestrated on host, but every heavy step is
@@ -200,11 +200,6 @@ class SMCSampler(Sampler):
         self._adaptive_target_efficiency = False
         self._mutate_cache: dict = {}
         self._step_size_carry = None
-        #: per-tile adapted step sizes for the fused-chain kernel
-        self._step_size_carry_fused = None
-        #: None = untried; True = compiled and running; False = failed
-        #: once (Mosaic lowering gap etc.) — permanently fall back.
-        self._fused_chain_state = None
         from ..profiling import Profiler
 
         self.profiler = Profiler()
@@ -444,226 +439,6 @@ class SMCSampler(Sampler):
         """Return (step_fn, init_step_size, needs_grad). Overridden."""
         raise NotImplementedError
 
-    # -- fused whole-chain mutation (ops/fused_mutation) --------------------
-
-    def _fused_kernel_config(self, kwargs) -> dict | None:
-        """(kernel, nu, target_acc, adapt_rate, init_step) when this
-        sampler's mutation kernel has a fused-chain implementation."""
-        return None
-
-    def _target_td_fns(self):
-        """Transposed-tile target fns via the td protocol, or None.
-
-        Looks for ``log_likelihood_td`` / ``log_prior_td`` on the
-        object the user callables are bound to (models/targets.py
-        docstring); user targets opt in the same way.
-        """
-        ll_td = getattr(
-            getattr(self.log_likelihood, "__self__", None),
-            "log_likelihood_td",
-            None,
-        ) or getattr(self.log_likelihood, "td", None)
-        lp_td = getattr(
-            getattr(self.log_prior, "__self__", None),
-            "log_prior_td",
-            None,
-        ) or getattr(self.log_prior, "td", None)
-        if ll_td is None or lp_td is None:
-            return None
-
-        def target_td(xt):
-            return lp_td(xt), ll_td(xt)
-
-        return target_td
-
-    def _fused_chain_spec(
-        self,
-        kwargs,
-        n: int | None,
-        waste_free: bool,
-        windowed_tau: bool,
-        precond,
-        dtype=jnp.float32,
-    ) -> dict | None:
-        """Dispatch predicate for the fused whole-chain Pallas kernel.
-
-        Returns the static chain spec, or None -> XLA path (``n=None``
-        defers the tile choice to the caller). The fused kernel runs
-        the ENTIRE k-step chain in one launch (VMEM-resident state,
-        on-core PRNG); see ops/fused_mutation.py for the documented
-        semantics deltas (per-tile step adaptation, TPU PRNG stream,
-        NaN-as=-inf target guard).
-        """
-        from ..ops import fused_coupling as FC
-        from ..ops import fused_mutation as FM
-
-        mode = kwargs.get("fused_chain", "auto")
-        if mode in (False, "off") or self._fused_chain_state is False:
-            return None
-        forced = mode is True
-        kcfg = self._fused_kernel_config(kwargs)
-        if kcfg is None:
-            return None
-        if (
-            waste_free
-            or windowed_tau
-            or kwargs.get("flow_moves")
-            or self.mesh is not None
-            or jnp.dtype(dtype) != jnp.float32
-        ):
-            return None
-        if not forced and jax.default_backend() != "tpu":
-            return None
-        if kcfg["kernel"] == "tpcn":
-            k2 = 2.0 * (0.5 * (kcfg["nu"] + self.dims))
-            if abs(k2 - round(k2)) > 1e-9:
-                return None
-            kcfg = dict(kcfg, gamma_m=int(round(k2)) // 2,
-                        gamma_odd=int(round(k2)) % 2)
-        else:
-            kcfg = dict(kcfg, gamma_m=0, gamma_odd=0)
-        arch = self.prior_flow.architecture
-        from ..flows.architectures import Coupling
-
-        if not isinstance(arch, Coupling):
-            return None
-        probe = jnp.zeros(
-            (max(n or 0, FC._MIN_FUSED_N), 2), jnp.float32
-        )
-        if not (forced or FC.should_fuse(arch, probe)):
-            return None
-        if n is None:
-            tile = None  # deferred: the device ladder picks per-shape
-        else:
-            tile = FM._pick_tile(n, self.dims, arch)
-            if tile is None:
-                return None
-        if (
-            FM.canonicalize_transform(
-                self.prior_flow.data_transform, self.dims
-            )
-            is None
-        ):
-            return None
-        if (
-            precond is not None
-            and FM.canonicalize_transform(precond, self.dims) is None
-        ):
-            return None
-        target_td = self._target_td_fns()
-        if target_td is None:
-            return None
-        kcfg["tile"] = tile
-        kcfg["target_td"] = target_td
-        kcfg["forced"] = forced
-        return kcfg
-
-    def _mutate_on_device_fused(
-        self, flow_state, precond, z, beta, key, n_steps, spec,
-        step_size_carry,
-    ):
-        """Fused-chain analog of :meth:`_mutate_on_device`.
-
-        Same return tuple; ``step_carry`` is the per-tile step-size
-        vector. The post-chain density refresh is free — the kernel
-        carries log_q/log_prior/log_likelihood through accept/select —
-        so the chain costs ``(n_steps + 1) n`` target evaluations
-        (vs ``(n_steps + 2) n`` on the XLA path).
-        """
-        from ..ops import fused_mutation as FM
-
-        n = z.shape[0]
-        dims = self.dims
-        tile = spec["tile"]
-        n_tiles = n // tile
-        use_carry = (
-            step_size_carry is not None
-            and getattr(step_size_carry, "shape", None) == (n_tiles,)
-        )
-        cache_key = (
-            "fused-mutate", n_steps, tile, precond is None, use_carry,
-            spec["kernel"],
-        )
-        if cache_key not in self._mutate_cache:
-            target_td = spec["target_td"]
-            arch = self.prior_flow.architecture
-            kernel = spec["kernel"]
-            nu = spec["nu"]
-            tacc = spec["target_acceptance"]
-            rate = spec["adaptation_rate"]
-            init_step = spec["init_step"]
-            gamma_m, gamma_odd = spec["gamma_m"], spec["gamma_odd"]
-            interpret = jax.default_backend() != "tpu"
-            from functools import partial as _partial
-
-            @_partial(
-                jax.jit, static_argnames=("n_steps", "use_carry")
-            )
-            def fused_fn(
-                flow_state, precond, z, beta, key, step0, n_steps,
-                use_carry,
-            ):
-                params, data_transform = flow_state
-                cfg = FM.ChainConfig(
-                    arch, kernel, n_steps, nu=nu,
-                    target_acceptance=tacc, adaptation_rate=rate,
-                    dt_prog=FM.canonicalize_transform(
-                        data_transform, dims
-                    ),
-                    pc_prog=(
-                        FM.canonicalize_transform(precond, dims)
-                        if precond is not None
-                        else None
-                    ),
-                    gamma_m=gamma_m, gamma_odd=gamma_odd,
-                )
-                gref = K.fit_gaussian_reference(z)
-                seed = jax.lax.bitcast_convert_type(
-                    jax.random.bits(key, (2,), jnp.uint32), jnp.int32
-                )
-                if not use_carry:
-                    step0 = jnp.full((n_tiles,), init_step, jnp.float32)
-                zf, lq, lpi, ll, nacc, steps, stats = FM.fused_mh_chain(
-                    cfg, params, z, beta, seed, step0,
-                    gref.mean, gref.chol, gref.inv_chol,
-                    target_td=target_td, tile=tile,
-                    interpret=interpret,
-                )
-                if precond is not None:
-                    x, _ = precond.inverse(zf)
-                else:
-                    x = zf
-                tau, mixing = FM.combine_tile_stats(stats, dims, tile)
-                acceptance = jnp.mean(nacc) / max(n_steps, 1)
-                evals = K.eval_counter_init()
-                total = (n_steps + 1) * n
-                while total > 0:
-                    amount = min(total, 1 << 30)
-                    evals = K.eval_counter_add(evals, amount)
-                    total -= amount
-                # NaN targets are mapped to -inf INSIDE the kernel (the
-                # documented fused-path contract), so these flags hold
-                # by construction; kept for tuple parity.
-                any_nan_q = jnp.isnan(lq).any()
-                any_nan_target = (
-                    jnp.isnan(lpi).any() | jnp.isnan(ll).any()
-                )
-                return (
-                    x, lq, lpi, ll, acceptance, tau, mixing, evals,
-                    any_nan_q, any_nan_target, steps,
-                )
-
-            self._mutate_cache[cache_key] = fused_fn
-        step0 = (
-            step_size_carry
-            if use_carry
-            else jnp.zeros((n_tiles,), jnp.float32)
-        )
-        return self._mutate_cache[cache_key](
-            flow_state, precond, z, beta, key, step0,
-            n_steps=n_steps, use_carry=use_carry,
-        )
-
     def mutate(
         self,
         samples: SMCSamples,
@@ -716,72 +491,36 @@ class SMCSampler(Sampler):
         key = self.next_key()
 
         if jittable:
-            fused_spec = self._fused_chain_spec(
-                kwargs, z.shape[0], waste_free, windowed_tau, precond,
-                dtype=z.dtype,
-            )
-            if fused_spec is not None:
-                # ONE Pallas launch runs the whole chain (state in
-                # VMEM, on-core PRNG); the first call compile-tests the
-                # kernel and permanently falls back on a Mosaic
-                # lowering gap.
-                try:
-                    with self.profiler.phase("mutate/chain"):
-                        (
-                            x, log_q, log_pi, log_l, acc_arr, tau_arr,
-                            mix_arr, evals_arr, any_nan_q,
-                            any_nan_target, step_carry,
-                        ) = self._mutate_on_device_fused(
-                            flow_state, precond, z, beta_arr, key,
-                            n_steps, fused_spec,
-                            self._step_size_carry_fused,
-                        )
-                    self._fused_chain_state = True
-                    self._step_size_carry_fused = step_carry
-                except Exception as err:  # noqa: BLE001
-                    if fused_spec["forced"] or self._fused_chain_state:
-                        raise
-                    logger.warning(
-                        "fused mutation chain failed to compile (%s); "
-                        "falling back to the XLA chain for this "
-                        "sampler",
-                        err,
-                    )
-                    self._fused_chain_state = False
-                    fused_spec = None
-            if fused_spec is None:
-                # Chain + density refresh + diagnostics are ONE jitted
-                # computation with ONE host fetch (remote backends pay
-                # a round-trip per dispatch). The adapted step size
-                # carries across temperatures so Robbins-Monro
-                # adaptation converges instead of restarting every
-                # mutation.
-                with self.profiler.phase("mutate/chain"):
-                    (
-                        x,
-                        log_q,
-                        log_pi,
-                        log_l,
-                        acc_arr,
-                        tau_arr,
-                        mix_arr,
-                        evals_arr,
-                        any_nan_q,
-                        any_nan_target,
-                        step_carry,
-                    ) = self._mutate_on_device(
-                        flow_state,
-                        precond,
-                        z,
-                        beta_arr,
-                        key,
-                        n_steps,
-                        kwargs,
-                        self._step_size_carry,
-                        waste_free=waste_free,
-                        windowed_tau=windowed_tau,
-                    )
-                self._step_size_carry = step_carry
+            # Chain + density refresh + diagnostics are ONE jitted
+            # computation with ONE host fetch. The adapted step size
+            # carries across temperatures so Robbins-Monro adaptation
+            # converges instead of restarting every mutation.
+            with self.profiler.phase("mutate/chain"):
+                (
+                    x,
+                    log_q,
+                    log_pi,
+                    log_l,
+                    acc_arr,
+                    tau_arr,
+                    mix_arr,
+                    evals_arr,
+                    any_nan_q,
+                    any_nan_target,
+                    step_carry,
+                ) = self._mutate_on_device(
+                    flow_state,
+                    precond,
+                    z,
+                    beta_arr,
+                    key,
+                    n_steps,
+                    kwargs,
+                    self._step_size_carry,
+                    waste_free=waste_free,
+                    windowed_tau=windowed_tau,
+                )
+            self._step_size_carry = step_carry
             with self.profiler.phase("mutate/sync"):
                 acceptance, tau, mixing, evals, nan_q, nan_target = (
                     jax.device_get(
@@ -1121,47 +860,16 @@ class SMCSampler(Sampler):
         self._ladder_base_evals = self.n_likelihood_evaluations
         self._ladder_n_steps = n_steps
 
-        def build():
-            return self._build_device_ladder(
-                n_steps,
-                max_iters,
-                with_checkpoint=(
-                    checkpoint_callback is not None or store_history
-                ),
-                waste_free=waste_free,
-            )
-
-        ladder = build()
+        ladder = self._build_device_ladder(
+            n_steps,
+            max_iters,
+            with_checkpoint=(checkpoint_callback is not None or store_history),
+            waste_free=waste_free,
+        )
         ladder_phase = self.profiler.phase("ladder")
         ladder_phase.__enter__()
 
-        def run_ladder(*args):
-            """First call compile-tests the fused-chain leg; a Mosaic
-            lowering gap falls back to an XLA-chain ladder build."""
-            nonlocal ladder
-            if not getattr(self, "_ladder_has_fused", False):
-                return ladder(*args)
-            if self._fused_chain_state in (False, True):
-                return ladder(*args)
-            try:
-                out = ladder(*args)
-                self._fused_chain_state = True
-                return out
-            except Exception as err:  # noqa: BLE001
-                if (self.sampler_kwargs or {}).get(
-                    "fused_chain"
-                ) is True:
-                    raise
-                logger.warning(
-                    "fused-chain ladder failed to compile (%s); "
-                    "rebuilding with the XLA chain",
-                    err,
-                )
-                self._fused_chain_state = False
-                ladder = build()
-                return ladder(*args)
-
-        out = run_ladder(
+        out = ladder(
             self.flow_state(),
             samples.x,
             samples.log_likelihood,
@@ -1626,7 +1334,6 @@ class SMCSampler(Sampler):
                      # call with a different min-step mode must not
                      # reuse a ladder compiled with the other one
                      self.adaptive_min_beta_step,
-                     self._fused_chain_state is not False,
                      tuple(sorted(self.sampler_kwargs.items())))
         if cache_key in self._mutate_cache:
             return self._mutate_cache[cache_key]
@@ -1655,30 +1362,14 @@ class SMCSampler(Sampler):
         if self.mesh is not None:
             from ..parallel.mesh import particle_sharding
 
+            from ..parallel.mesh import replicated_sharding
+
             constraint = particle_sharding(self.mesh)
+            replicated = replicated_sharding(self.mesh)
         else:
             constraint = None
 
         checkpoint_host_cb = self._ladder_checkpoint_host
-
-        # Fused whole-chain mutation (ops/fused_mutation): the ladder
-        # always runs precond-free, so only the data-transform program
-        # is needed. The tile choice is deferred to trace time (the
-        # population size is only known then); non-fusable shapes fall
-        # back to the XLA chain inside the same compiled ladder.
-        from ..ops import fused_mutation as FM
-
-        kwargs_all = dict(self.default_sampler_kwargs)
-        kwargs_all.update(self.sampler_kwargs or {})
-        fused_spec = None
-        if collective_impl is None and not flow_move_every:
-            fused_spec = self._fused_chain_spec(
-                kwargs_all, None, waste_free, windowed_tau, None
-            )
-        self._ladder_has_fused = fused_spec is not None
-        arch_f = self.prior_flow.architecture
-        dims_f = self.dims
-        interp_f = jax.default_backend() != "tpu"
 
         @jax.jit
         def ladder(
@@ -1705,16 +1396,7 @@ class SMCSampler(Sampler):
         ):
             n = x.shape[0]
             dtype = x.dtype
-            fused_tile = None
-            if fused_spec is not None and dtype == jnp.float32:
-                fused_tile = FM._pick_tile(n, dims_f, arch_f)
-            use_fused = fused_tile is not None
             step_init = step0.astype(dtype)
-            if use_fused and step_init.ndim == 0:
-                # Per-tile adapted step sizes (fused-chain carry).
-                step_init = jnp.broadcast_to(
-                    step_init, (n // fused_tile,)
-                )
             zeros_h = jnp.zeros((max_iters,), dtype)
             state = {
                 "x": x,
@@ -1813,6 +1495,13 @@ class SMCSampler(Sampler):
                         n_out=n_chains,
                     )
                 else:
+                    if constraint is not None:
+                        # Indices from one replicated weight vector, as
+                        # the collective resamplers draw them (see
+                        # SMCSamples.resample).
+                        log_w = jax.lax.with_sharding_constraint(
+                            log_w, replicated
+                        )
                     idx = resampler(rs_key, log_w, n_chains)
                     x_r = s["x"][idx]
                     if constraint is not None:
@@ -1824,136 +1513,84 @@ class SMCSampler(Sampler):
                             x_r, constraint
                         )
 
-                if use_fused:
-                    # Fused whole-chain mutation: ONE Pallas launch per
-                    # temperature (ops/fused_mutation), densities
-                    # carried through accept/select so no post-chain
-                    # refresh is needed.
-                    params_fs, dt_fs = flow_state
-                    cfg_f = FM.ChainConfig(
-                        arch_f,
-                        fused_spec["kernel"],
-                        n_steps,
-                        nu=fused_spec["nu"],
-                        target_acceptance=fused_spec[
-                            "target_acceptance"
-                        ],
-                        adaptation_rate=fused_spec["adaptation_rate"],
-                        dt_prog=FM.canonicalize_transform(
-                            dt_fs, dims_f
-                        ),
-                        gamma_m=fused_spec["gamma_m"],
-                        gamma_odd=fused_spec["gamma_odd"],
-                    )
-                    gref = K.fit_gaussian_reference(x_r)
-                    seed = jax.lax.bitcast_convert_type(
-                        jax.random.bits(mut_key, (2,), jnp.uint32),
-                        jnp.int32,
-                    )
-                    step0 = jnp.where(
-                        s["step"] > 0,
-                        s["step"],
-                        jnp.asarray(fused_spec["init_step"], dtype),
-                    )
-                    (
-                        x_m, lq_m, lpi_m, ll_m, nacc_f, step_next,
-                        stats_f,
-                    ) = FM.fused_mh_chain(
-                        cfg_f, params_fs, x_r, beta, seed, step0,
-                        gref.mean, gref.chol, gref.inv_chol,
-                        target_td=fused_spec["target_td"],
-                        tile=fused_tile, interpret=interp_f,
-                    )
-                    tau, mixing = FM.combine_tile_stats(
-                        stats_f, dims_f, fused_tile
-                    )
-                    acc = jnp.mean(nacc_f) / max(n_steps, 1)
-                    ev_step = K.eval_counter_init()
-                    total_ev = (n_steps + 1) * n
-                    while total_ev > 0:
-                        ev_step = K.eval_counter_add(
-                            ev_step, min(total_ev, 1 << 30)
-                        )
-                        total_ev -= min(total_ev, 1 << 30)
-                else:
-                    lp_fn = lambda zz: tempered(  # noqa: E731
-                        flow_state, None, zz, beta
-                    )
-                    ref = K.fit_gaussian_reference(x_r)
-                    step_fn, init_step, needs_grad = builder(
-                        lp_fn, ref
-                    )
-                    if flow_move_every:
-                        step_fn = make_imh(
-                            step_fn,
-                            lp_fn,
-                            flow_state,
-                            beta,
-                            flow_move_every,
-                            needs_grad,
-                        )
-                    if needs_grad:
-                        lp0, grad0 = _value_and_grad_batch(lp_fn, x_r)
-                    else:
-                        lp0, grad0 = lp_fn(x_r), None
-                    step0 = jnp.where(
-                        s["step"] > 0,
-                        s["step"],
-                        jnp.asarray(init_step, dtype=dtype),
-                    )
-                    chain0 = K.ChainState(
-                        x=x_r,
-                        log_prob=lp0,
-                        key=mut_key,
-                        step_size=step0,
-                        n_accept=jnp.zeros(n_chains, dtype=dtype),
-                        grad=grad0,
-                        n_evals=K.eval_counter_init(),
-                    )
-                    final, chain, cstats = K.run_chain(
+                lp_fn = lambda zz: tempered(  # noqa: E731
+                    flow_state, None, zz, beta
+                )
+                ref = K.fit_gaussian_reference(x_r)
+                step_fn, init_step, needs_grad = builder(
+                    lp_fn, ref
+                )
+                if flow_move_every:
+                    step_fn = make_imh(
                         step_fn,
-                        chain0,
-                        n_steps,
-                        # Waste-free pools the full chain; windowed_tau
-                        # alone stores only the strided tau_walkers
-                        # subset, so opting in costs O(k * 1024 * d)
-                        # memory inside the while_loop at any n.
-                        store_chain=waste_free,
-                        track_autocorr=True,
-                        windowed_tau=windowed_tau,
-                        tau_walkers=tau_walkers,
+                        lp_fn,
+                        flow_state,
+                        beta,
+                        flow_move_every,
+                        needs_grad,
                     )
-                    tau = cstats.tau
-                    mixing = cstats.mixing
-                    if waste_free:
-                        # Pool every chain state, ancestor-major (each
-                        # mesh shard's pooled rows stay contiguous).
-                        x_m = jnp.swapaxes(chain, 0, 1).reshape(
-                            n, x.shape[1]
+                if needs_grad:
+                    lp0, grad0 = _value_and_grad_batch(lp_fn, x_r)
+                else:
+                    lp0, grad0 = lp_fn(x_r), None
+                step0 = jnp.where(
+                    s["step"] > 0,
+                    s["step"],
+                    jnp.asarray(init_step, dtype=dtype),
+                )
+                chain0 = K.ChainState(
+                    x=x_r,
+                    log_prob=lp0,
+                    key=mut_key,
+                    step_size=step0,
+                    n_accept=jnp.zeros(n_chains, dtype=dtype),
+                    grad=grad0,
+                    n_evals=K.eval_counter_init(),
+                )
+                final, chain, cstats = K.run_chain(
+                    step_fn,
+                    chain0,
+                    n_steps,
+                    # Waste-free pools the full chain; windowed_tau
+                    # alone stores only the strided tau_walkers
+                    # subset, so opting in costs O(k * 1024 * d)
+                    # memory inside the while_loop at any n.
+                    store_chain=waste_free,
+                    track_autocorr=True,
+                    windowed_tau=windowed_tau,
+                    tau_walkers=tau_walkers,
+                )
+                tau = cstats.tau
+                mixing = cstats.mixing
+                if waste_free:
+                    # Pool every chain state, ancestor-major (each
+                    # mesh shard's pooled rows stay contiguous).
+                    x_m = jnp.swapaxes(chain, 0, 1).reshape(
+                        n, x.shape[1]
+                    )
+                    if constraint is not None:
+                        x_m = jax.lax.with_sharding_constraint(
+                            x_m, constraint
                         )
-                        if constraint is not None:
-                            x_m = jax.lax.with_sharding_constraint(
-                                x_m, constraint
-                            )
-                    else:
-                        x_m = final.x
-                    lq_m = flow_log_prob(flow_state, x_m).astype(dtype)
-                    view = make_view(x_m)
-                    lpi_m = (
-                        jnp.asarray(log_prior(view))
-                        .reshape(-1)
-                        .astype(dtype)
-                    )
-                    ll_m = (
-                        jnp.asarray(log_likelihood(view))
-                        .reshape(-1)
-                        .astype(dtype)
-                    )
-                    acc = jnp.mean(final.n_accept / max(n_steps, 1))
-                    step_next = final.step_size.astype(dtype)
-                    ev_step = K.eval_counter_add(
-                        final.n_evals, n_chains + n
-                    )
+                else:
+                    x_m = final.x
+                lq_m = flow_log_prob(flow_state, x_m).astype(dtype)
+                view = make_view(x_m)
+                lpi_m = (
+                    jnp.asarray(log_prior(view))
+                    .reshape(-1)
+                    .astype(dtype)
+                )
+                ll_m = (
+                    jnp.asarray(log_likelihood(view))
+                    .reshape(-1)
+                    .astype(dtype)
+                )
+                acc = jnp.mean(final.n_accept / max(n_steps, 1))
+                step_next = final.step_size.astype(dtype)
+                ev_step = K.eval_counter_add(
+                    final.n_evals, n_chains + n
+                )
 
                 # Lineage-degeneracy recursion (matches the host ladder,
                 # including the one-particle floor).
@@ -2153,7 +1790,6 @@ class SMCSampler(Sampler):
         self.sampler_kwargs.update(sampler_kwargs or {})
         n_final_steps = self.sampler_kwargs.pop("n_final_steps", None)
         self._step_size_carry = None  # re-adapt from defaults per run
-        self._step_size_carry_fused = None
         self._lineage_fraction = 1.0  # fresh population: all independent
 
         resumed = resume_from is not None
@@ -2774,22 +2410,6 @@ class PCNSMC(SMCSampler):
             "initial_step_size": 0.5,
         }
 
-    def _fused_kernel_config(self, kwargs):
-        step_name = kwargs.get("step_fn", "tpcn")
-        if step_name not in ("tpcn", "pcn"):
-            return None
-        return {
-            "kernel": step_name,
-            "nu": float(kwargs.get("nu", 5.0)),
-            "target_acceptance": float(
-                kwargs.get("target_acceptance_rate", 0.234)
-            ),
-            "adaptation_rate": float(
-                kwargs.get("adaptation_rate", 0.1)
-            ),
-            "init_step": float(kwargs.get("initial_step_size", 0.5)),
-        }
-
     def _kernel_step_builder(self, log_prob_fn, ref):
         kwargs = dict(self.default_sampler_kwargs)
         kwargs.update(self.sampler_kwargs or {})
@@ -2862,21 +2482,6 @@ class GradientSMC(SMCSampler):
             "n_leapfrog": 10,  # hmc only
             "max_depth": 8,  # nuts only
             "adaptation_rate": 0.05,
-        }
-
-    def _fused_kernel_config(self, kwargs):
-        if kwargs.get("kernel", self.kernel_name) != "rwmh":
-            return None
-        return {
-            "kernel": "rwmh",
-            "nu": 5.0,
-            "target_acceptance": float(
-                kwargs.get("target_acceptance_rate", 0.234)
-            ),
-            "adaptation_rate": float(
-                kwargs.get("adaptation_rate", 0.05)
-            ),
-            "init_step": float(kwargs.get("step_size", 0.1)),
         }
 
     def _kernel_step_builder(self, log_prob_fn, ref):

@@ -1,6 +1,6 @@
 """Sample containers.
 
-TPU-native data model replacing the reference's xp-polymorphic dataclasses
+Single-namespace data model replacing the reference's xp-polymorphic dataclasses
 (``/root/reference/src/aspire/samples.py``). All arrays are JAX arrays in a
 single namespace; conversion happens only at I/O and plotting boundaries.
 The hot path inside samplers operates on plain JAX arrays (see
@@ -48,33 +48,19 @@ def incremental_log_weights(log_q, log_likelihood, log_prior, beta_prev, beta):
     return jnp.where(jnp.isnan(log_w), -jnp.inf, log_w)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("n_samples", "method", "uniform_weights")
-)
+@functools.partial(jax.jit, static_argnames=("n_samples", "method"))
 def _resample_on_device(
     key,
+    log_w,
     x,
     log_likelihood,
     log_prior,
     log_q,
-    beta_prev,
-    beta,
     *,
     n_samples: int,
     method: str,
-    uniform_weights: bool,
 ):
-    """Incremental weights -> resampling indices -> gathers, in one jit.
-
-    The NaN guard mirrors the reference's normalized-log-weights guard
-    (samples.py:1244-1249): non-finite weights get zero probability.
-    """
-    if uniform_weights:
-        log_w = jnp.zeros(x.shape[0], dtype=x.dtype)
-    else:
-        log_w = incremental_log_weights(
-            log_q, log_likelihood, log_prior, beta_prev, beta
-        )
+    """Resampling indices from ``log_w`` -> gathers, in one jit."""
     idx = get_resampler(method)(key, log_w, n_samples)
     return x[idx], log_likelihood[idx], log_prior[idx], log_q[idx]
 
@@ -1161,29 +1147,51 @@ class SMCSamples(BaseSamples):
                 f"Unknown resampling impl {impl!r}: use 'auto', 'ring' "
                 "or 'alltoall'."
             )
+        # The NaN guard in incremental_log_weights mirrors the
+        # reference's normalized-log-weights guard (samples.py:1244-1249):
+        # non-finite weights get zero probability.
+        if same_beta:
+            log_w = jnp.zeros(n, dtype=self.x.dtype)
+        else:
+            log_w = incremental_log_weights(
+                self.log_q,
+                self.log_likelihood,
+                self.log_prior,
+                self.beta,
+                beta,
+            )
+        in_sharding = getattr(self.x, "sharding", None)
+        sharded = (
+            isinstance(in_sharding, jax.sharding.NamedSharding)
+            and in_sharding.spec
+        )
+        if sharded:
+            # Draw the indices from one replicated weight vector, as the
+            # collective resamplers do after their all-gather: reductions
+            # split across shards sum in another order, which can move a
+            # boundary index and break bit-identity between impls.
+            log_w = jax.device_put(
+                log_w,
+                jax.sharding.NamedSharding(
+                    in_sharding.mesh, jax.sharding.PartitionSpec()
+                ),
+            )
         x, ll, lp, lq = _resample_on_device(
             key,
+            log_w,
             self.x,
             self.log_likelihood,
             self.log_prior,
             self.log_q,
-            jnp.asarray(self.beta, dtype=self.x.dtype),
-            jnp.asarray(beta, dtype=self.x.dtype),
             n_samples=int(n_samples),
             method=method,
-            uniform_weights=bool(same_beta),
         )
         # The resampling gather is all-to-all, so GSPMD lowers its
         # output REPLICATED. Left alone, every downstream mutation would
         # then run replicated on all devices (no speedup at all) — pin
         # the outputs back to the input's particle sharding. The
         # device_put is cheap: each device just keeps its own slice.
-        in_sharding = getattr(self.x, "sharding", None)
-        if (
-            isinstance(in_sharding, jax.sharding.NamedSharding)
-            and in_sharding.spec
-            and n_samples % in_sharding.mesh.devices.size == 0
-        ):
+        if sharded and n_samples % in_sharding.mesh.devices.size == 0:
             # P over the leading axis applies to (n, d) and (n,) alike,
             # and to any output size that tiles the mesh (e.g. the
             # M = n/k ancestor population of waste-free SMC).

@@ -1,6 +1,6 @@
 """Invertible data transforms with log-abs-det Jacobians.
 
-TPU-first redesign of the reference's transform layer
+Pytree redesign of the reference's transform layer
 (``/root/reference/src/aspire/transforms.py``): every transform is a
 **registered pytree** whose fitted parameters are JAX arrays, so a
 transform instance can be passed straight through ``jit``/``shard_map``

@@ -1,6 +1,6 @@
 """Utilities: logging, dtype handling, call tracking, host-pool support.
 
-TPU-native replacement for the reference's array-portability layer
+JAX replacement for the reference's array-portability layer
 (``/root/reference/src/aspire/utils.py``). Because this framework targets a
 single array namespace (JAX), the xp-dispatch machinery (``resolve_xp``,
 ``asarray``, ``convert_dtype``, DLPack exchange; utils.py:258-476 in the
@@ -16,6 +16,7 @@ import dataclasses
 import functools
 import inspect
 import logging
+import os
 import sys
 from typing import Any, Callable
 
@@ -70,6 +71,27 @@ def configure_logger(
 # ---------------------------------------------------------------------------
 # dtype helpers
 # ---------------------------------------------------------------------------
+
+
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compilation cache for an entry point.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already keeps its cache
+    there and nothing is changed. Otherwise the cache goes to the fixed
+    directory ``<checkout>/.jax_cache``: the path is part of the cache's
+    key, so a directory that moved would never hit. Entry-point scripts
+    call this; importing the package never does, because the CPU test
+    suite runs without a cache. Returns the cache directory.
+    """
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if path:
+        return path
+    path = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache",
+    )
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def resolve_dtype(dtype: Any) -> jnp.dtype | None:
@@ -185,8 +207,8 @@ def function_id(fn: Callable) -> str | None:
 class PoolHandler:
     """Context manager that parallelizes a *host* likelihood over a pool.
 
-    On TPU the preferred contract is a jittable likelihood evaluated on
-    device; this handler exists for parity with the reference's
+    On an accelerator the preferred contract is a jittable likelihood
+    evaluated on device; this handler exists for parity with the reference's
     ``PoolHandler`` for user likelihoods that are plain Python and accept a
     ``map_fn`` keyword (reference utils.py:117-193,
     docs/multiprocessing.rst:1-70). The likelihood must accept ``map_fn`` as

@@ -1,4 +1,4 @@
-"""A/B: host ladder vs single-dispatch device ladder on TPU."""
+"""A/B: host ladder vs single-dispatch device ladder on the accelerator."""
 import os, sys, time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 import numpy as np

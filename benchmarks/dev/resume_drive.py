@@ -1,4 +1,4 @@
-"""Drive mid-ladder checkpoint/resume on TPU through the public API."""
+"""Drive mid-ladder checkpoint/resume on the accelerator through the public API."""
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 

@@ -1,4 +1,4 @@
-"""TPU drive of the adaptive PT ladder (betas="adaptive" + pilot).
+"""Accelerator drive of the adaptive PT ladder (betas="adaptive" + pilot).
 
 Fits a flow on the 2-D box-Gaussian (analytic logZ = -2 log 20), then
 runs the parallel-tempered sampler three ways — geometric ladder,

@@ -1,4 +1,4 @@
-"""A/B: standard vs waste-free SMC at 131072 particles on TPU."""
+"""A/B: standard vs waste-free SMC at 131072 particles on the accelerator."""
 import os, sys, time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 import numpy as np

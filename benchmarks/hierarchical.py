@@ -37,6 +37,9 @@ def main() -> None:
 
     from aspire_tpu import Aspire, Samples, configure_logger
     from aspire_tpu.models import HierarchicalProblem
+    from aspire_tpu.utils import enable_compilation_cache
+
+    enable_compilation_cache()
 
     configure_logger("INFO")
     print(f"device: {jax.devices()[0]}", file=sys.stderr)

@@ -1,25 +1,28 @@
 """Turnkey multi-host harness: weak scaling + sharded-checkpoint drill.
 
-One script, no code changes between environments — the first real pod
-run should measure, not debug. Every host runs the SAME command; the
+One script, no code changes between environments — the first real
+multi-host run should measure, not debug. Every host runs the SAME
+command, one process per host driving all of that host's GPUs; the
 script initializes ``jax.distributed``, builds the global mesh, runs a
 fixed sharded SMC workload (timed), exercises the shard-wise
 checkpoint/resume drill across processes, validates logZ against the
 analytic evidence, and process 0 emits ONE JSON line.
 
-Real pod — run on every host (coordinator = host 0's address):
+Real cluster — run on every host (coordinator = host 0's address):
 
     python benchmarks/multihost.py \
         --coordinator 10.0.0.1:9876 --num-processes 4 --process-id $I \
         --particles-per-device 16384
 
-Cloud TPU pods with standard metadata can auto-detect everything:
+Cluster managers that ``jax.distributed.initialize()`` recognises (for
+example SLURM) can auto-detect everything:
 
     python benchmarks/multihost.py --auto
 
-Virtual validation on one machine (4 controllers x 2 CPU devices — the
-structure check this 1-chip environment supports; exercised by
-tests/test_multihost_harness.py):
+``--spawn N`` is a CPU-only rehearsal of the multi-controller structure
+on one machine (N controllers x 2 virtual CPU devices; exercised by
+tests/test_multihost_harness.py). It never opens a GPU: one process per
+card is the rule there, and one process drives all cards of a host.
 
     python benchmarks/multihost.py --spawn 4 --cpu-devices-per-proc 2
 """
@@ -71,12 +74,14 @@ def spawn(args) -> int:
         cmd_base += ["--no-checkpoint-drill"]
     if not args.pt_drill:
         cmd_base += ["--no-pt-drill"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     procs = [
         subprocess.Popen(
             cmd_base + ["--process-id", str(i)],
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT,
             text=True,
+            env=env,
         )
         for i in range(args.spawn)
     ]
@@ -102,6 +107,12 @@ def worker(args) -> int:
         jax.config.update(
             "jax_num_cpu_devices", args.cpu_devices_per_proc
         )
+    else:
+        # No persistent cache for the CPU rehearsal: serializing the
+        # collective resamplers' CPU executables has crashed jaxlib.
+        from aspire_tpu.utils import enable_compilation_cache
+
+        enable_compilation_cache()
     if args.auto:
         jax.distributed.initialize()
     elif args.num_processes and args.num_processes > 1:
@@ -296,7 +307,7 @@ def main() -> None:
                         help="launcher mode: spawn N local controllers")
     parser.add_argument("--auto", action="store_true",
                         help="jax.distributed.initialize() auto-detect "
-                             "(Cloud TPU pod metadata)")
+                             "(cluster managers JAX recognises)")
     parser.add_argument("--coordinator", default=None)
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)

@@ -36,6 +36,10 @@ def main() -> None:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", args.cpu)
+    else:
+        from aspire_tpu.utils import enable_compilation_cache
+
+        enable_compilation_cache()
 
     import jax.numpy as jnp
     import numpy as np

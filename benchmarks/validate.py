@@ -97,8 +97,7 @@ def analytic_log_z(problem) -> float:
     if name == "GaussianProblem":
         return float(problem.true_log_evidence)
     if name == "RosenbrockProblem":
-        # 2-d quadrature truth (6001^2 grid converges to 4 decimals;
-        # refined-grid check in benchmarks/RESULTS.md notes).
+        # 2-d quadrature truth (a 6001^2 grid converges to 4 decimals).
         assert problem.dims == 2
         from scipy.special import logsumexp as lse
 
@@ -181,6 +180,7 @@ def main() -> None:
     import numpy as np
 
     from aspire_tpu import Aspire, Samples, configure_logger
+    from aspire_tpu.utils import enable_compilation_cache
     from aspire_tpu.models import (
         FunnelProblem,
         GaussianMixtureProblem,
@@ -189,6 +189,7 @@ def main() -> None:
     )
 
     configure_logger("WARNING")
+    enable_compilation_cache()
     failures = 0
 
     def run_gate(

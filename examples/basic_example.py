@@ -1,6 +1,6 @@
 """Fit a flow to existing samples and importance-reweight the posterior.
 
-TPU-native counterpart of the reference's examples/basic_example.py:
+JAX counterpart of the reference's examples/basic_example.py:
 a 4-D Gaussian likelihood with a uniform prior (analytic log-evidence
 ``-dims * log(20)``). The likelihood/prior here are jittable, so the
 entire sampling path runs on device.

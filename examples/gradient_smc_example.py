@@ -1,6 +1,6 @@
 """SMC with gradient-based (NUTS) mutations.
 
-TPU-native counterpart of the reference's examples/blackjax_smc_example.py.
+JAX counterpart of the reference's examples/blackjax_smc_example.py.
 ``sampler="nuts_smc"`` runs a real static-shape No-U-Turn sampler: each
 particle doubles its own trajectory under ``vmap`` (multinomial
 progressive sampling, bounded ``max_depth``), so trajectory lengths adapt

@@ -1,6 +1,6 @@
 """Sequential posterior inference with adaptive-tempered SMC.
 
-TPU-native counterpart of the reference's examples/smc_example.py: a 4-D
+JAX counterpart of the reference's examples/smc_example.py: a 4-D
 two-Gaussian-mixture target with deliberately offset initial samples, an
 NSF flow proposal, tpCN mutations, checkpoint/resume via
 ``auto_checkpoint``.

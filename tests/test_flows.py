@@ -114,7 +114,7 @@ class TestArchitectures:
             assert float(ld[i]) == pytest.approx(float(expected), abs=1e-7)
 
     def test_nsf_tpu_preset(self, key):
-        """Round-4 TPU-tuned preset: 3 x (64,64) x 8 bins RQS coupling,
+        """The compact NSF preset: 3 x (64,64) x 8 bins RQS coupling,
         overridable per kwarg, exact forward/inverse roundtrip."""
         arch = get_architecture("nsf-tpu", 4)
         assert (arch.n_layers, arch.n_hidden, arch.num_bins) == (

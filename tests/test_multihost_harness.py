@@ -2,7 +2,7 @@
 controllers over a shared virtual CPU mesh and produces the scaling
 JSON (VERDICT r2 item 7: the first real pod run should measure, not
 debug — this validates the launch path, the cross-process SMC, and the
-shard-wise checkpoint drill without TPU hardware)."""
+shard-wise checkpoint drill without accelerator hardware)."""
 
 import json
 import os

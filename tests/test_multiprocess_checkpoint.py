@@ -1,7 +1,7 @@
 """Two-controller sharded checkpoint: per-process files + barrier +
 shard-local reload, run as real separate JAX processes over a shared
 4-device CPU mesh (the multi-host contract in docs/checkpointing.md,
-exercised without TPU pods)."""
+exercised without multi-host hardware)."""
 
 import socket
 import subprocess

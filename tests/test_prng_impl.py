@@ -1,10 +1,9 @@
 """First-class PRNG-implementation selection (``prng_impl="rbg"``).
 
-Round-5 API: the measured +14% TPU opt-in (docs/performance.md knob 3)
-is a per-run constructor kwarg rather than a process-global env var.
-Covers: key creation, end-to-end SMC, SMC checkpoint/resume stream
-continuity, and the PT state round-trip extended to the kwarg path
-(the env-var path is covered by benchmarks/dev/validate_rbg.log).
+The PRNG opt-in is a per-run constructor kwarg rather than a
+process-global env var. Covers: key creation, end-to-end SMC, SMC
+checkpoint/resume stream continuity, and the PT state round-trip
+extended to the kwarg path.
 """
 
 import math
